@@ -1,0 +1,495 @@
+"""Chip smoke test of the PyTorch/CUDA port (cess_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py            # all phases, one card
+
+Phases, one line each on stdout:
+  0  setup: card name and power limit, torch/CUDA versions, kernel build
+  1  each hand-written kernel (K1 map, K4 pow chain, K2 GLV fold, K3
+     ladder) against its plain tensor twin on the card, at the shapes the
+     verify path gives it, plus edge inputs; equal mod p per coordinate
+  2  the PoDR2 verdict matrix at Podr2Params(n=8, s=4) through
+     TorchBackend() against the port's CpuBackend, and prove_batch bytes
+  3  protocol geometry (1024 chunks × 265 sectors, 47 challenged chunks):
+     B = 3072 crafted proofs verify all True with every kernel's launch
+     count read around that run; the same batch once more under
+     torch.profiler for the device's busy time; a 64-proof sub-batch
+     with one tampered μ isolates exactly that proof
+  4  a `kernels` JSON line: launches on the B = 3072 run, time, twin
+     time, bound and the check error of every kernel
+
+The last line is {"ok": true, "device": {...}}; any failed phase exits
+non-zero before it.  Imports neither jax nor cess_tpu.
+"""
+
+from __future__ import annotations
+
+import json
+import random
+import subprocess
+import sys
+import time
+
+# H100 SXM peaks (NVIDIA's published datasheet figures): 3.35 TB/s of
+# HBM, 67 TFLOP/s float32 outside the tensor cores = 33.5 T FFMA/s.  The
+# 32-bit integer multiply-add (IMAD) issues at half the FFMA rate.
+HBM_BYTES_PER_S = 3.35e12
+IMAD_PER_S = 67e12 / 2 / 2
+# One 12-word CIOS Montgomery product: 2·12·12 + 12 = 300 widening
+# 32×32→64-bit multiply-adds, each two IMAD issues (low and high word).
+# A squaring needs only 78 distinct word products (66 cross terms,
+# doubled, and 12 squares) before the same 144 + 12 of the reduction:
+# 234 widening multiply-adds.  The bound charges each product the least
+# its kind needs; the kernels themselves square with the general product.
+IMAD_PER_FP_MUL = 600
+IMAD_PER_FP_SQR = 468
+# Phase 3's batch: three full 1,024-proof chunks, an odd chunk count.
+BATCH = 3072
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def say(phase: str, **kv) -> None:
+    print(json.dumps({"phase": phase, **kv}, default=str), flush=True)
+
+
+def main() -> None:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke needs a GPU")
+    try:
+        import cess_tpu_torch  # noqa: F401
+    except ImportError as e:
+        fail(f"cess_tpu_torch is not importable here: {e}")
+
+    from cess_tpu_torch.ops import _cuda
+
+    dev = torch.device("cuda:0")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()
+    card = smi[0] if smi else "nvidia-smi unavailable"
+    t0 = time.perf_counter()
+    _cuda.build()
+    _cuda.load_all()
+    build_s = time.perf_counter() - t0
+    say("0-setup", card=card, torch=torch.__version__, cuda=torch.version.cuda,
+        build_seconds=round(build_s, 3),
+        ptxas={n: _ptxas_summary(n) for n in _cuda._SOURCES})
+
+    results = phase_kernels(torch, dev)
+    phase_matrix(torch, dev)
+    launches = phase_geometry(torch, dev, BATCH)
+    rows = []
+    for name in ("K1", "K4", "K2", "K3"):
+        r = dict(results[name])
+        r["launches"] = launches[name]
+        rows.append(r)
+    missing = [r["name"] for r in rows if r["launches"] == 0]
+    if missing:
+        fail(f"main path launched no {missing}")
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+
+
+def _ptxas_summary(name: str) -> list[str]:
+    from cess_tpu_torch.ops import _cuda
+
+    path = _cuda.build_dir() / f"{name}.ptxas.txt"
+    if not path.exists():
+        return ["(cached build)"]
+    lines = path.read_text(errors="replace").splitlines()
+    return [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
+
+
+# ------------------------------------------------------------ phase 1
+
+
+def _time_ms(torch, fn, reps: int) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    fn()  # warm
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _compare(torch, got, want) -> int:
+    """max |canonical limb difference| over the coordinates (0 = equal
+    mod p coordinate by coordinate)."""
+    from cess_tpu_torch.ops.h2c import _canon_mod_p
+
+    err = 0
+    for a, b in zip(got, want):
+        d = (_canon_mod_p(a) - _canon_mod_p(b)).abs().max().item()
+        err = max(err, int(d))
+    return err
+
+
+def _rand_fp(torch, rng, n: int, dev, loose: bool = False):
+    """(33, n) random field elements: canonical (< 2^377 < p, as the
+    host's u values), or, with `loose`, any limbs in [0, 4096] with a top
+    limb of 0 or 1 — inside the loose bound the verify path's point sums
+    carry into the kernels."""
+    from cess_tpu_torch.ops.g1 import L
+
+    if loose:
+        x = torch.as_tensor(rng.integers(0, 4097, size=(L, n), dtype="int32"), device=dev)
+        x[L - 1] = torch.as_tensor(rng.integers(0, 2, size=n, dtype="int32"), device=dev)
+        return x
+    x = torch.as_tensor(rng.integers(0, 4096, size=(L, n), dtype="int32"), device=dev)
+    x[L - 1] = 0
+    x[L - 2] &= 0x1F
+    return x
+
+
+def _points_to_dev(torch, pts, dev):
+    from cess_tpu_torch.proof.fused import pack_points_limbs
+
+    return tuple(torch.as_tensor(a, device=dev) for a in pack_points_limbs(pts))
+
+
+def _edge_points():
+    from cess_tpu_torch.ops import bls12_381 as bls
+
+    rnd = random.Random(7)
+    sub = [bls.G1_GENERATOR.mul(rnd.getrandbits(200)) for _ in range(6)]
+    nonsub = [bls.map_to_curve_g1(rnd.getrandbits(300) % bls.P) for _ in range(6)]
+    return sub, nonsub, bls.G1Point.infinity()
+
+
+def _row(name, src, replaces, ms, plain_ms, muls, nbytes, err):
+    """muls: (Fp products, of which squarings) counted by the twin."""
+    n_mul, n_sqr = muls
+    ops_ms = ((n_mul - n_sqr) * IMAD_PER_FP_MUL + n_sqr * IMAD_PER_FP_SQR) / IMAD_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {
+        "name": name, "route": "cuda", "source": src, "replaces": replaces,
+        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": None, "fp_muls": n_mul, "fp_squarings": n_sqr,
+    }
+
+
+def _twin(torch, fn):
+    """Run a twin on the card once: (outputs, ms, (Fp products, of which
+    squarings) counted)."""
+    from cess_tpu_torch.ops import g1
+
+    torch.cuda.synchronize()
+    c0, q0 = g1.MUL_COUNT[0], g1.SQR_COUNT[0]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end), (g1.MUL_COUNT[0] - c0, g1.SQR_COUNT[0] - q0)
+
+
+def phase_kernels(torch, dev) -> dict:
+    import numpy as np
+
+    from cess_tpu_torch.ops import bls12_381 as bls
+    from cess_tpu_torch.ops import g1, glv, h2c
+
+    rng = np.random.default_rng(2024)
+    P = bls.P
+    n_pairs = 1024 * 47  # one verify chunk: 1024 proofs × 47 pairs
+    res = {}
+
+    # ---- K1 map (with K4 inside) on the chunk's pair count, edge u first
+    neg_inv_z = -pow(h2c.Z_SSWU, P - 2, P) % P
+    edges = [0, 1, P - 1, 2, P - 2, 5, 7, 11]
+    r = bls.fp_sqrt(neg_inv_z)
+    if r is not None:
+        edges += [r, P - r]
+    u = _rand_fp(torch, rng, 2 * n_pairs, dev).reshape(g1.L, 2, n_pairs)
+    for k, v in enumerate(edges):
+        u[:, k % 2, k // 2] = torch.as_tensor(g1.fp_to_limbs(v), device=dev)
+    sgn = torch.as_tensor(rng.integers(0, 2, size=(2, n_pairs), dtype="int32"), device=dev)
+    exc = torch.zeros((2, n_pairs), dtype=torch.int32, device=dev)
+    flat = u.reshape(g1.L, -1)
+    # exact predicate bits (random lanes: exc = 0 with overwhelming
+    # probability; sgn is the parity of the canonical value)
+    sgn.copy_((flat[0] & 1).reshape(2, n_pairs))
+    host = u[:, :, : (len(edges) + 1) // 2].cpu().numpy()
+    for j in range(host.shape[2]):
+        for e in range(2):
+            val = g1.limbs_to_fp(host[:, e, j])
+            exc[e, j] = int(val == 0 or val * val % P == neg_inv_z)
+    got = h2c._map_pairs_kernel(u, sgn, exc)
+    want, plain_ms, muls = _twin(torch, lambda: h2c._map_pairs_core(u, sgn, exc))
+    err = _compare(torch, got, want)
+    ms = _time_ms(torch, lambda: h2c._map_pairs_kernel(u, sgn, exc), 3)
+    res["K1"] = _row("K1 map (SSWU pair map + E' add + isogeny, incl. its K4 launch)",
+                     "cess_tpu_torch/csrc/map.cu", "cess_tpu/ops/h2c.py:542",
+                     ms, plain_ms, muls, (33 * 2 + 4 + 99) * 4 * n_pairs, err)
+    say("1-K1", lanes=n_pairs, max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    if err:
+        fail("K1 map kernel disagrees with its twin")
+
+    # ---- K4 pow chain on the map's 2N chain inputs
+    t = _rand_fp(torch, rng, 2 * n_pairs, dev, loose=True)
+    t[:, :4] = torch.as_tensor(np.stack([g1.fp_to_limbs(v) for v in (0, 1, P - 1, 2)], 1), device=dev)
+    got = h2c._pow_c1(t)
+    want, plain_ms, muls = _twin(torch, lambda: h2c._pow_c1_plain(t))
+    err = _compare(torch, [got], [want])
+    ms = _time_ms(torch, lambda: h2c._pow_c1(t), 3)
+    res["K4"] = _row("K4 pow chain t^((p-3)/4)", "cess_tpu_torch/csrc/powc1.cu",
+                     "cess_tpu/ops/h2c.py:263", ms, plain_ms, muls,
+                     2 * 33 * 4 * 2 * n_pairs, err)
+    say("1-K4", lanes=2 * n_pairs, max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    if err:
+        fail("K4 pow kernel disagrees with its twin")
+
+    # ---- K2 GLV fold: clear=True on the chunk's lanes, clear=False on 265
+    sub, nonsub, inf = _edge_points()
+    X, Y, Z = (_rand_fp(torch, rng, n_pairs, dev, loose=True) for _ in range(3))
+    eX, eY, eZ = _points_to_dev(torch, sub + nonsub + [inf], dev)
+    ne = eX.shape[1]
+    X[:, :ne], Y[:, :ne], Z[:, :ne] = eX, eY, eZ
+    k1 = torch.as_tensor(rng.integers(0, 4096, size=(glv.K_LIMBS, n_pairs), dtype="int32"), device=dev)
+    k2 = k1.flip(1).contiguous()
+    k1[glv.K_LIMBS - 1] = 0
+    k2[glv.K_LIMBS - 1] = 0
+    d1, d2 = glv.decompose_to_limbs([0, 1, bls.R - 1])
+    k1[:, :3] = torch.as_tensor(d1, device=dev)
+    k2[:, :3] = torch.as_tensor(d2, device=dev)
+    got = glv.glv_fold(X, Y, Z, k1, k2, clear=True)
+    want, plain_ms, muls = _twin(torch, lambda: glv._glv_core(X, Y, Z, k1, k2, True))
+    err = _compare(torch, got, want)
+    ms = _time_ms(torch, lambda: glv.glv_fold(X, Y, Z, k1, k2, clear=True), 3)
+    n_u = 265
+    got2 = glv.glv_fold(X[:, :n_u], Y[:, :n_u], Z[:, :n_u], k1[:, :n_u], k2[:, :n_u], clear=False)
+    want2, _, _ = _twin(torch, lambda: glv._glv_core(
+        X[:, :n_u], Y[:, :n_u], Z[:, :n_u], k1[:, :n_u], k2[:, :n_u], False))
+    err2 = _compare(torch, got2, want2)
+    res["K2"] = _row("K2 GLV fold (clear=True, chunk lanes)", "cess_tpu_torch/csrc/glv.cu",
+                     "cess_tpu/ops/glv.py:237", ms, plain_ms, muls,
+                     (3 * 33 + 2 * 12 + 3 * 33) * 4 * n_pairs, max(err, err2))
+    say("1-K2", lanes=n_pairs, max_abs_err=err, clear_false_lanes=n_u,
+        clear_false_err=err2, ms=ms, plain_ms=plain_ms)
+    if err or err2:
+        fail("K2 GLV kernel disagrees with its twin")
+
+    # ---- K3 ladder: the verify chunk's one launch (3 × 1024 lanes at 255
+    # bits), bits 128 and 224 at 1024 lanes, and the r-chain mask
+    n3 = 3 * 1024
+    X, Y, Z = (_rand_fp(torch, rng, n3, dev, loose=True) for _ in range(3))
+    X[:, :ne], Y[:, :ne], Z[:, :ne] = eX, eY, eZ
+    s = torch.as_tensor(rng.integers(0, 4096, size=(g1.R_LIMBS, n3), dtype="int32"), device=dev)
+    s[g1.R_LIMBS - 1] &= 0x7  # < 2^255
+    s[:, :3] = torch.as_tensor(g1.scalars_to_limbs([0, 1, bls.R - 1]).T.copy(), device=dev)
+    got = g1.scalar_mul_ladder((X, Y, Z), s, bits=255)
+    want, plain_ms, muls = _twin(torch, lambda: g1.batch_scalar_mul((X, Y, Z), s, 255))
+    err = _compare(torch, got, want)
+    ms = _time_ms(torch, lambda: g1.scalar_mul_ladder((X, Y, Z), s, bits=255), 3)
+    errs = {}
+    for bits in (128, 224):
+        sb = s[:, :1024].clone()
+        sb[bits // 12] &= (1 << (bits % 12)) - 1
+        sb[bits // 12 + 1 :] = 0
+        pts = (X[:, :1024], Y[:, :1024], Z[:, :1024])
+        errs[bits] = _compare(torch, g1.scalar_mul_ladder(pts, sb, bits=bits),
+                              g1.batch_scalar_mul(pts, sb, bits))
+    mask = glv.subgroup_mask(eX, eY, eZ).tolist()
+    want_mask = [1] * len(sub) + [0] * len(nonsub) + [1]
+    res["K3"] = _row("K3 double-and-add ladder (255 bits, 3072 lanes)",
+                     "cess_tpu_torch/csrc/ladder.cu", "cess_tpu/ops/g1.py:476",
+                     ms, plain_ms, muls, (3 * 33 + 22 + 3 * 33) * 4 * n3,
+                     max([err] + list(errs.values())))
+    say("1-K3", lanes=n3, max_abs_err=err, err_bits128=errs[128],
+        err_bits224=errs[224], subgroup_mask=mask, ms=ms, plain_ms=plain_ms)
+    if err or any(errs.values()):
+        fail("K3 ladder kernel disagrees with its twin")
+    if mask != want_mask:
+        fail(f"subgroup mask {mask} != {want_mask}")
+    return res
+
+
+# ------------------------------------------------------------ phase 2
+
+
+def phase_matrix(torch, dev) -> None:
+    from cess_tpu_torch.ops import bls12_381 as bls
+    from cess_tpu_torch.ops import podr2
+    from cess_tpu_torch.ops.bls12_381 import R
+    from cess_tpu_torch.ops.podr2 import Challenge, Podr2Params, keygen, tag_fragment
+    from cess_tpu_torch.proof import CpuBackend, TorchBackend, fused
+    from cess_tpu_torch.proof.backend import ProveRequest
+
+    t_start = time.perf_counter()
+    params = Podr2Params(n=8, s=4)
+    sk, pk = keygen(b"fused-tee")
+
+    def challenge(indices, seed=b"f"):
+        return Challenge(tuple(indices), tuple(
+            (seed + i.to_bytes(2, "little")).ljust(20, b"\x5a") for i in indices))
+
+    ch = challenge([0, 2, 5])
+    names, datas, tags = [], [], []
+    for k in range(3):
+        names.append(f"fused-frag-{k}".encode())
+        datas.append(bytes([(k * 31 + i) % 256 for i in range(params.fragment_bytes)]))
+        tags.append(tag_fragment(sk, names[-1], datas[-1], params))
+    req = ProveRequest(names, tags, datas, ch, params)
+    gpu = TorchBackend()
+    cpu = CpuBackend()
+    proofs = gpu.prove_batch(req)
+    if [p.encode() for p in proofs] != [p.encode() for p in cpu.prove_batch(req)]:
+        fail("prove_batch proofs differ from CpuBackend's")
+    honest = [(n, ch, p) for n, p in zip(names, proofs)]
+
+    def with_proof(i, proof):
+        out = list(honest)
+        out[i] = (honest[i][0], ch, proof)
+        return out
+
+    p1 = honest[1][2]
+    bad_mu = podr2.Podr2Proof(p1.sigma, [(p1.mu[0] + 1) % R] + p1.mu[1:])
+    rnd = random.Random(11)
+    q = bls.map_to_curve_g1(rnd.getrandbits(300) % bls.P)
+    raw = bytearray(q.x.to_bytes(48, "big"))
+    raw[0] |= 0x80
+    if q.y > bls.P - q.y:
+        raw[0] |= 0x20
+    ch_a = challenge([0, 3])
+    ch_b = Challenge((1, 4, 6), (b"r1".ljust(20, b"\x01"), b"r2".ljust(20, b"\x02")))
+    ragged = []
+    for k, c in ((0, ch_a), (1, ch_b)):
+        nm = f"ragged-{k}".encode()
+        data = bytes([(k * 7 + i) % 256 for i in range(params.fragment_bytes)])
+        ragged.append((nm, c, podr2.prove(tag_fragment(sk, nm, data, params), data, c, params)))
+    cases = {
+        "honest": (honest, b"round"),
+        "bad_mu": (with_proof(1, bad_mu), b"round"),
+        "bad_sigma_encoding": (with_proof(0, podr2.Podr2Proof(b"\x00" * 48, list(honest[0][2].mu))), b"round"),
+        "non_subgroup_sigma": (with_proof(2, podr2.Podr2Proof(bytes(raw), list(honest[2][2].mu))), b"round"),
+        "mu_out_of_range": (with_proof(0, podr2.Podr2Proof(honest[0][2].sigma, [R] + honest[0][2].mu[1:])), b"round"),
+        "ragged": (ragged, b"rag"),
+        "single": (honest[:1], b"one"),
+    }
+    verdicts = {}
+    for name, (items, seed) in cases.items():
+        g = gpu.verify_batch(pk, items, seed, params)
+        c = cpu.verify_batch(pk, items, seed, params)
+        if g != c:
+            fail(f"verdict matrix case {name}: torch {g} != cpu {c}")
+        verdicts[name] = g
+    # three chunks (CHUNK shrunk to 1): the odd chunk-count accumulation
+    saved = fused.CHUNK
+    fused.CHUNK = 1
+    try:
+        g3 = gpu.verify_batch(pk, honest, b"r3", params)
+    finally:
+        fused.CHUNK = saved
+    if g3 != [True] * 3:
+        fail(f"3-chunk batch {g3}")
+    say("2-matrix", verdicts=verdicts, three_chunks=g3, prove_bytes_equal=True,
+        seconds=round(time.perf_counter() - t_start, 3))
+
+
+# ------------------------------------------------------------ phase 3
+
+
+def _device_busy(torch, fn):
+    """fn() under torch.profiler → (its result, device busy ms, wall ms,
+    the largest device entries).  Busy is None where the trace holds no
+    device time (the profiler could not reach the card)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side entries only: a CPU op's entry repeats its kernels' time
+    rows = [(e.key.split("(")[0], e.self_device_time_total / 1e3)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(ms for _, ms in rows)
+    top = {k: round(ms, 3) for k, ms in sorted(rows, key=lambda r: -r[1])[:8]}
+    return out, (busy or None), wall_ms, top
+
+
+def phase_geometry(torch, dev, batch: int) -> dict:
+    from cess_tpu_torch.ops import g1, glv, h2c, podr2
+    from cess_tpu_torch.ops.bls12_381 import R
+    from cess_tpu_torch.ops.podr2 import Challenge, Podr2Params
+    from cess_tpu_torch.proof import TorchBackend, fused
+
+    params = Podr2Params()  # protocol geometry: 1024 chunks × 265 sectors
+    sk, pk = podr2.keygen(b"bench-tee")
+    rnd = random.Random(0xBE7C)
+    indices = tuple(sorted(rnd.sample(range(params.n), 47)))
+    ch = Challenge(indices, tuple(rnd.randbytes(20) for _ in indices))
+    coeffs = ch.coefficients()
+    names = [b"bench-frag-%08d" % i for i in range(batch)]
+    t0 = time.perf_counter()
+    sigmas = fused.craft_sigmas(names, ch, [sk * v % R for v in coeffs], device="cuda")
+    craft_s = time.perf_counter() - t0
+    items = [(nm, ch, podr2.Podr2Proof(s.to_bytes(), [0] * params.s))
+             for nm, s in zip(names, sigmas)]
+    podr2.u_generators(params.s)  # host-side generator hashing, cached
+
+    backend = TorchBackend()
+    counters = {"K1": h2c._map_pairs_kernel, "K4": h2c._pow_c1,
+                "K2": glv.glv_fold, "K3": g1.scalar_mul_ladder}
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    verdicts = backend.verify_batch(pk, items, b"bench-seed", params)
+    torch.cuda.synchronize()
+    verify_s = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    if verdicts != [True] * batch:
+        fail(f"protocol batch: {verdicts.count(False)} of {batch} proofs rejected")
+    say("3-geometry", batch=batch, chunks=-(-batch // fused.CHUNK),
+        verify_seconds=round(verify_s, 3), proofs_per_s=round(batch / verify_s, 3),
+        craft_seconds=round(craft_s, 3),
+        stage_seconds={k: round(v, 3) for k, v in backend.stage_seconds.items()},
+        launches=launches, all_true=True)
+
+    verdicts, busy_ms, wall_ms, top = _device_busy(torch, lambda: backend.verify_batch(
+        pk, items, b"bench-seed", params))
+    if verdicts != [True] * batch:
+        fail("protocol batch under the profiler: not all True")
+    say("3-trace", batch=batch, wall_ms=wall_ms, device_busy_ms=busy_ms,
+        device_idle_share=None if busy_ms is None else 1 - busy_ms / wall_ms,
+        top_device_ms=top)
+
+    sub = list(items[:64])
+    nm, c, p = sub[17]
+    sub[17] = (nm, c, podr2.Podr2Proof(p.sigma, [1] + p.mu[1:]))
+    t0 = time.perf_counter()
+    v = backend.verify_batch(pk, sub, b"bench-seed-2", params)
+    want = [True] * 64
+    want[17] = False
+    if v != want:
+        fail(f"tampered sub-batch verdicts {v}")
+    say("3-tampered", batch=64, false_at=[i for i, x in enumerate(v) if not x],
+        seconds=round(time.perf_counter() - t0, 3))
+    return launches
+
+
+if __name__ == "__main__":
+    main()

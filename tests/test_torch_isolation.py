@@ -1,0 +1,142 @@
+"""The PyTorch port stands alone: importing cess_tpu_torch pulls in neither
+jax nor any module of the JAX package, its sources import neither, and
+its device entry points refuse to run without a card instead of falling
+back to the plain tensor path."""
+
+import pkgutil
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import cess_tpu_torch
+from cess_tpu_torch.ops import _cuda, g1, glv, h2c
+from cess_tpu_torch.proof import TorchBackend, get_backend
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "cess_tpu_torch"
+
+# `import jax`, `from jaxlib …`, `import cess_tpu.ops…`, `from cess_tpu
+# import …` — but not the port's own name, which starts with cess_tpu.
+_FORBIDDEN = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|cess_tpu)(?![\w])", re.MULTILINE
+)
+
+
+def _all_modules() -> list[str]:
+    return sorted(
+        m.name
+        for m in pkgutil.walk_packages(cess_tpu_torch.__path__, "cess_tpu_torch.")
+    )
+
+
+def test_import_pulls_in_no_jax_and_no_cess_tpu():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_all_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'cess_tpu'))\n"
+        "print(repr(bad))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120, check=True,
+    )
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_sources_import_no_jax_and_no_cess_tpu():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    offenders = [
+        f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
+        for f in files
+        for m in _FORBIDDEN.finditer(f.read_text())
+    ]
+    assert offenders == []
+
+
+def test_forbidden_pattern_tells_the_port_from_the_reference():
+    assert _FORBIDDEN.search("from cess_tpu.ops import g1")
+    assert _FORBIDDEN.search("import cess_tpu")
+    assert _FORBIDDEN.search("  import jax.numpy as jnp")
+    assert not _FORBIDDEN.search("from cess_tpu_torch.ops import g1")
+    assert not _FORBIDDEN.search("import cess_tpu_torch")
+
+
+def test_every_kernel_has_a_cuda_source():
+    for name, src in _cuda._SOURCES.items():
+        text = (PKG / "csrc" / src).read_text()
+        assert "__global__" in text
+        for fn in _cuda._SIGS[name]:
+            assert f'extern "C" int {fn}(' in text, (src, fn)
+        assert 'extern "C" int cess_init(' in text
+
+
+def test_torch_backend_refuses_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchBackend()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_backend("torch")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_backend()  # the default backend is the card's
+    assert TorchBackend(device="cpu").device.type == "cpu"
+
+
+def test_kernel_library_refuses_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(_cuda, "_libs", {})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _cuda.lib("ladder")
+
+
+def test_wrappers_raise_on_devices_without_a_kernel():
+    """A tensor that is neither on the CPU nor on a card gets an error,
+    never the plain tensor path."""
+    x = torch.zeros((g1.L, 4), dtype=torch.int32, device="meta")
+    s = torch.zeros((g1.R_LIMBS, 4), dtype=torch.int32, device="meta")
+    k = torch.zeros((glv.K_LIMBS, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="K3"):
+        g1.scalar_mul_ladder((x, x, x), s, bits=8)
+    with pytest.raises(RuntimeError, match="K2"):
+        glv.glv_fold(x, x, x, k, k)
+    with pytest.raises(RuntimeError, match="K4"):
+        h2c._pow_c1(x)
+    u = torch.zeros((g1.L, 2, 4), dtype=torch.int32, device="meta")
+    f = torch.zeros((2, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="K1"):
+        h2c._map_pairs_kernel(u, f, f)
+
+
+def test_wrappers_check_shapes():
+    x = torch.zeros((g1.L, 4), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        g1.scalar_mul_ladder((x, x, x[:, :3]), torch.zeros((22, 4), dtype=torch.int32), bits=8)
+    with pytest.raises(ValueError):
+        glv.glv_fold(x, x, x, torch.zeros((11, 4), dtype=torch.int32),
+                     torch.zeros((11, 4), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        h2c._pow_c1(x[:32])
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_a_card(tmp_path, alone):
+    """chip_smoke.py exits non-zero and prints no result line where
+    torch.cuda.is_available() is false, and where it stands alone."""
+    if alone:
+        shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+        cwd = tmp_path
+    else:
+        cwd = ROOT
+    out = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True,
+        text=True, timeout=120, env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""},
+    )
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
