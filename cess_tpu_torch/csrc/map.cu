@@ -67,9 +67,9 @@ __global__ void __launch_bounds__(128)
   if (lane >= m) return;
   Fp u, tv1, tv2, tv3, tv4, tv5, tv6, t2, a, c;
   fp_from_limbs(u, U + lane, (size_t)m);
-  fp_mul(a, u, u);
+  fp_sqr(a, u);
   fp_small<11>(tv1, a);  // Z·u²
-  fp_mul(a, tv1, tv1);
+  fp_sqr(a, tv1);
   fp_add(tv2, a, tv1);  // Z²u⁴ + Zu²
   fp_one(a);
   fp_add(a, tv2, a);
@@ -82,8 +82,8 @@ __global__ void __launch_bounds__(128)
   }
   fp_load(c, MC.a);
   fp_mul(tv4, tv4, c);
-  fp_mul(t2, tv3, tv3);
-  fp_mul(tv6, tv4, tv4);
+  fp_sqr(t2, tv3);
+  fp_sqr(tv6, tv4);
   fp_mul(tv5, tv6, c);
   fp_add(a, t2, tv5);
   fp_mul(t2, a, tv3);
@@ -93,7 +93,7 @@ __global__ void __launch_bounds__(128)
   fp_add(t2, t2, tv5);  // g(x1)·tv4³
   // sqrt_ratio(t2, tv6), up to the chain's input u′·v′³
   Fp uv;
-  fp_mul(a, tv6, tv6);
+  fp_sqr(a, tv6);
   fp_mul(uv, t2, tv6);
   fp_mul(a, a, uv);
   fp_to_limbs(powin + lane, (size_t)m, a);
@@ -124,7 +124,7 @@ __device__ __noinline__ void sswu_tail(Pt& r, const int32_t* U,
   fp_mul(y1, pw, uv);
   fp_load(c, MC.c2);
   fp_mul(y2, y1, c);
-  fp_mul(a, y1, y1);
+  fp_sqr(a, y1);
   fp_mul(a, a, tv6);
   const bool is_qr = fp_eq(a, t2);
   fp_select(y1, is_qr, y1, y2);

@@ -31,7 +31,7 @@ __global__ void __launch_bounds__(128)
 #pragma unroll 1
   for (int i = 1; i < (int)PWC.ndigits; ++i) {
 #pragma unroll 1
-    for (int s = 0; s < 4; ++s) fp_mul(acc, acc, acc);
+    for (int s = 0; s < 4; ++s) fp_sqr(acc, acc);
     fp_mul(acc, acc, pre[PWC.digits[i]]);
   }
   fp_to_limbs(out + lane, (size_t)n, acc);

@@ -38,9 +38,13 @@ _SOURCES = {
     "powc1": "powc1.cu",
 }
 _HEADERS = ("fp381.cuh",)
+# ptxas at -O1: its -O3 schedule interleaves independent products for
+# more registers than the GLV kernel's 12 resident warps leave it (168),
+# and spilled; at -O1 it takes 146, spills nothing and runs no slower
+# (PERF.md §6).
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-Xptxas", "-O1",
 ]
 
 _lock = threading.Lock()
@@ -163,7 +167,10 @@ _LL = ctypes.c_longlong
 _INT = ctypes.c_int
 _SIGS = {
     "ladder": {"cess_ladder": [_VP] * 7 + [_LL, _INT, _VP]},
-    "glv": {"cess_glv": [_VP] * 8 + [_LL, _INT, _VP]},
+    "glv": {
+        "cess_glv": [_VP] * 9 + [_LL, _INT, _VP],
+        "cess_glv_scratch_words": [_LL],
+    },
     "map": {
         "cess_map_front": [_VP] * 4 + [_LL, _VP],
         "cess_map_back": [_VP] * 7 + [_LL, _VP],
@@ -171,6 +178,7 @@ _SIGS = {
     },
     "powc1": {"cess_pow_c1": [_VP] * 2 + [_LL, _VP]},
 }
+_RESTYPES = {"cess_glv_scratch_words": ctypes.c_longlong}
 
 
 def lib(name: str) -> ctypes.CDLL:
@@ -185,7 +193,7 @@ def lib(name: str) -> ctypes.CDLL:
         so = ctypes.CDLL(str(_lib_path(name)))
         for fn, args in _SIGS[name].items():
             getattr(so, fn).argtypes = args
-            getattr(so, fn).restype = ctypes.c_int
+            getattr(so, fn).restype = _RESTYPES.get(fn, ctypes.c_int)
         so.cess_init.argtypes = [_VP, _INT]
         so.cess_init.restype = ctypes.c_int
         so.cess_consts_words.restype = ctypes.c_int
@@ -246,13 +254,17 @@ def ladder(X, Y, Z, s, bits: int):
 
 
 def glv(X, Y, Z, k1, k2, clear: bool):
+    """K2; the 16-entry tables of the resident lanes live in a scratch
+    buffer sized by the launcher's grid."""
     X, Y, Z, k1, k2 = _in(X, Y, Z, k1, k2)
     n = X.shape[1]
+    so = lib("glv")
     o = _new((3, 33, n), X)
-    rc = lib("glv").cess_glv(
+    scratch = _new((max(so.cess_glv_scratch_words(n), 1),), X)
+    rc = so.cess_glv(
         X.data_ptr(), Y.data_ptr(), Z.data_ptr(), k1.data_ptr(), k2.data_ptr(),
-        o[0].data_ptr(), o[1].data_ptr(), o[2].data_ptr(), n, int(clear),
-        _stream(),
+        o[0].data_ptr(), o[1].data_ptr(), o[2].data_ptr(), scratch.data_ptr(),
+        n, int(clear), _stream(),
     )
     _check(rc, "glv")
     return o[0], o[1], o[2]

@@ -252,7 +252,7 @@ def _fold(x: torch.Tensor, rounds: int) -> torch.Tensor:
 
 
 MUL_COUNT = [0]  # Fp products computed by `mulm` (lanes · calls)
-SQR_COUNT = [0]  # of those, squarings: `mulm(a, a)` on one tensor
+SQR_COUNT = [0]  # of those, squarings: `mulm(a, a)`, and pt_double's two
 
 
 def _batch(a: torch.Tensor, b: torch.Tensor) -> torch.Size:
@@ -344,6 +344,7 @@ def pt_double(p):
     """Complete projective doubling (RCB Alg. 9, a = 0)."""
     X, Y, Z = p
     m = mulm(_st(Y, Y, Z, X), _st(Y, Z, Z, Y))
+    SQR_COUNT[0] += 2 * math.prod(m.shape[2:])  # Y·Y and Z·Z of the stack
     t0, t1, zz, xy = m[:, 0], m[:, 1], m[:, 2], m[:, 3]
     Z3 = addm(t0, t0)
     Z3 = addm(Z3, Z3)
@@ -384,6 +385,21 @@ def batch_scalar_mul(points, scalars: torch.Tensor, bits: int = SCALAR_BITS):
         bit = ((scalars[j // LIMB_BITS] >> (j % LIMB_BITS)) & 1) == 1
         acc = select_point(bit, s, acc)
     return acc
+
+
+def ladder_work(scalars, bits: int = SCALAR_BITS) -> tuple[int, int]:
+    """(Fp products, of which squarings) that [s]P needs over all lanes
+    of a (22, N) limb array: one doubling (8 products, 2 squarings) per
+    bit below a lane's top set bit and one addition (12 products) per set
+    bit, counting bits below `bits` only.  Steps outside these leave the
+    accumulator as it is, which is what kernel K3 skips."""
+    s = np.asarray(scalars.cpu() if isinstance(scalars, torch.Tensor) else scalars)
+    doublings = additions = 0
+    for j in range(s.shape[1]):
+        v = limbs_to_fp(s[:, j] & (BASE - 1)) & ((1 << bits) - 1)
+        doublings += max(v.bit_length() - 1, 0)
+        additions += bin(v).count("1")
+    return 8 * doublings + 12 * additions, 2 * doublings
 
 
 def _check_points(points, *others):

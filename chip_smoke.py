@@ -5,8 +5,10 @@
 Phases, one line each on stdout:
   0  setup: card name and power limit, torch/CUDA versions, kernel build
   1  each hand-written kernel (K1 map, K4 pow chain, K2 GLV fold, K3
-     ladder) against its plain tensor twin on the card, at the shapes the
-     verify path gives it, plus edge inputs; equal mod p per coordinate
+     ladder) against its plain tensor twin on the card, at the shapes and
+     (for K3) the scalars the verify path gives it (`kernel_inputs`), K3
+     also at prove_batch's launch, plus edge inputs and, for K2 and K3,
+     the lane counts LANE_COUNTS; equal mod p per coordinate
   2  the PoDR2 verdict matrix at Podr2Params(n=8, s=4) through
      TorchBackend() against the port's CpuBackend, and prove_batch bytes
   3  protocol geometry (1024 chunks × 265 sectors, 47 challenged chunks):
@@ -35,15 +37,22 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 67e12 / 2 / 2
 # One 12-word CIOS Montgomery product: 2·12·12 + 12 = 300 widening
-# 32×32→64-bit multiply-adds, each two IMAD issues (low and high word).
-# A squaring needs only 78 distinct word products (66 cross terms,
-# doubled, and 12 squares) before the same 144 + 12 of the reduction:
-# 234 widening multiply-adds.  The bound charges each product the least
-# its kind needs; the kernels themselves square with the general product.
+# 32×32→64-bit multiply-adds.  Each costs two IMAD issues in whichever
+# form ptxas picks: a low IMAD and an IMAD.HI (which issues at half the
+# IMAD rate), or one IMAD.WIDE (also half rate) — tools/torch_fp_sass.py
+# measures the rates on the card.  A squaring needs only 78 distinct word
+# products (66 cross terms, doubled, and 12 squares) before the same
+# 144 + 12 of the reduction: 234 widening multiply-adds.  The bound
+# charges each product the least its kind needs, whatever the kernel
+# computes it with.
 IMAD_PER_FP_MUL = 600
 IMAD_PER_FP_SQR = 468
 # Phase 3's batch: three full 1,024-proof chunks, an odd chunk count.
 BATCH = 3072
+# Lane counts K2 and K3 are also held to their twins at: 1, a part of a
+# K3 warp, a part of a block, the u-fold's 265, and one above 16k that is
+# a multiple of no group, warp or block size.
+LANE_COUNTS = (1, 5, 31, 265, 16411)
 
 
 def fail(msg: str) -> None:
@@ -110,6 +119,7 @@ def _ptxas_summary(name: str) -> list[str]:
     if not path.exists():
         return ["(cached build)"]
     lines = path.read_text(errors="replace").splitlines()
+    # "N bytes stack frame, N bytes spill stores, …" and "Used N registers"
     return [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
 
 
@@ -176,7 +186,7 @@ def _edge_points():
 def _row(name, src, replaces, ms, plain_ms, muls, nbytes, err):
     """muls: (Fp products, of which squarings) counted by the twin."""
     n_mul, n_sqr = muls
-    ops_ms = ((n_mul - n_sqr) * IMAD_PER_FP_MUL + n_sqr * IMAD_PER_FP_SQR) / IMAD_PER_S * 1e3
+    ops_ms = _ops_ms(muls)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return {
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -203,7 +213,20 @@ def _twin(torch, fn):
     return out, start.elapsed_time(end), (g1.MUL_COUNT[0] - c0, g1.SQR_COUNT[0] - q0)
 
 
-def phase_kernels(torch, dev) -> dict:
+def kernel_inputs(torch, dev) -> dict:
+    """The inputs phase 1 holds each kernel to its twin on and times it
+    on, from one seeded generator (tools/torch_kernel_times.py times the
+    same ones):
+      K1        u of one verify chunk's 48,128 pairs, the edge values first,
+                with their exact sign and exceptional-case bits
+      K4        the map's 2N chain inputs, loose limbs, edge values first
+      K2        48,128 loose points (edge points first) and GLV halves
+                (0, 1, r − 1 first)
+      K3        the chunk's one launch, as fused.py builds it: points ×
+                [ρ ‖ ρ ‖ r] over 3 × 1024 lanes at 255 bits, ρ < 2^128
+      K3_prove  prove_batch's launch: 1,024 groups of 64 lanes, 47 points
+                with 160-bit coefficients and 17 (∞, 0) pads, bits = 160
+    """
     import numpy as np
 
     from cess_tpu_torch.ops import bls12_381 as bls
@@ -212,9 +235,8 @@ def phase_kernels(torch, dev) -> dict:
     rng = np.random.default_rng(2024)
     P = bls.P
     n_pairs = 1024 * 47  # one verify chunk: 1024 proofs × 47 pairs
-    res = {}
+    inp = {}
 
-    # ---- K1 map (with K4 inside) on the chunk's pair count, edge u first
     neg_inv_z = -pow(h2c.Z_SSWU, P - 2, P) % P
     edges = [0, 1, P - 1, 2, P - 2, 5, 7, 11]
     r = bls.fp_sqrt(neg_inv_z)
@@ -223,47 +245,25 @@ def phase_kernels(torch, dev) -> dict:
     u = _rand_fp(torch, rng, 2 * n_pairs, dev).reshape(g1.L, 2, n_pairs)
     for k, v in enumerate(edges):
         u[:, k % 2, k // 2] = torch.as_tensor(g1.fp_to_limbs(v), device=dev)
-    sgn = torch.as_tensor(rng.integers(0, 2, size=(2, n_pairs), dtype="int32"), device=dev)
-    exc = torch.zeros((2, n_pairs), dtype=torch.int32, device=dev)
-    flat = u.reshape(g1.L, -1)
     # exact predicate bits (random lanes: exc = 0 with overwhelming
     # probability; sgn is the parity of the canonical value)
-    sgn.copy_((flat[0] & 1).reshape(2, n_pairs))
+    sgn = (u.reshape(g1.L, -1)[0] & 1).reshape(2, n_pairs).contiguous()
+    exc = torch.zeros((2, n_pairs), dtype=torch.int32, device=dev)
     host = u[:, :, : (len(edges) + 1) // 2].cpu().numpy()
     for j in range(host.shape[2]):
         for e in range(2):
             val = g1.limbs_to_fp(host[:, e, j])
             exc[e, j] = int(val == 0 or val * val % P == neg_inv_z)
-    got = h2c._map_pairs_kernel(u, sgn, exc)
-    want, plain_ms, muls = _twin(torch, lambda: h2c._map_pairs_core(u, sgn, exc))
-    err = _compare(torch, got, want)
-    ms = _time_ms(torch, lambda: h2c._map_pairs_kernel(u, sgn, exc), 3)
-    res["K1"] = _row("K1 map (SSWU pair map + E' add + isogeny, incl. its K4 launch)",
-                     "cess_tpu_torch/csrc/map.cu", "cess_tpu/ops/h2c.py:542",
-                     ms, plain_ms, muls, (33 * 2 + 4 + 99) * 4 * n_pairs, err)
-    say("1-K1", lanes=n_pairs, max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    if err:
-        fail("K1 map kernel disagrees with its twin")
+    inp["K1"] = (u, sgn, exc)
 
-    # ---- K4 pow chain on the map's 2N chain inputs
     t = _rand_fp(torch, rng, 2 * n_pairs, dev, loose=True)
     t[:, :4] = torch.as_tensor(np.stack([g1.fp_to_limbs(v) for v in (0, 1, P - 1, 2)], 1), device=dev)
-    got = h2c._pow_c1(t)
-    want, plain_ms, muls = _twin(torch, lambda: h2c._pow_c1_plain(t))
-    err = _compare(torch, [got], [want])
-    ms = _time_ms(torch, lambda: h2c._pow_c1(t), 3)
-    res["K4"] = _row("K4 pow chain t^((p-3)/4)", "cess_tpu_torch/csrc/powc1.cu",
-                     "cess_tpu/ops/h2c.py:263", ms, plain_ms, muls,
-                     2 * 33 * 4 * 2 * n_pairs, err)
-    say("1-K4", lanes=2 * n_pairs, max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    if err:
-        fail("K4 pow kernel disagrees with its twin")
+    inp["K4"] = t
 
-    # ---- K2 GLV fold: clear=True on the chunk's lanes, clear=False on 265
     sub, nonsub, inf = _edge_points()
-    X, Y, Z = (_rand_fp(torch, rng, n_pairs, dev, loose=True) for _ in range(3))
     eX, eY, eZ = _points_to_dev(torch, sub + nonsub + [inf], dev)
     ne = eX.shape[1]
+    X, Y, Z = (_rand_fp(torch, rng, n_pairs, dev, loose=True) for _ in range(3))
     X[:, :ne], Y[:, :ne], Z[:, :ne] = eX, eY, eZ
     k1 = torch.as_tensor(rng.integers(0, 4096, size=(glv.K_LIMBS, n_pairs), dtype="int32"), device=dev)
     k2 = k1.flip(1).contiguous()
@@ -272,51 +272,162 @@ def phase_kernels(torch, dev) -> dict:
     d1, d2 = glv.decompose_to_limbs([0, 1, bls.R - 1])
     k1[:, :3] = torch.as_tensor(d1, device=dev)
     k2[:, :3] = torch.as_tensor(d2, device=dev)
-    got = glv.glv_fold(X, Y, Z, k1, k2, clear=True)
+    inp["K2"] = (X, Y, Z, k1, k2)
+
+    n3 = 3 * 1024
+    X, Y, Z = (_rand_fp(torch, rng, n3, dev, loose=True) for _ in range(3))
+    X[:, :ne], Y[:, :ne], Z[:, :ne] = eX, eY, eZ
+    rho = torch.as_tensor(g1.scalars_to_limbs(
+        [int.from_bytes(rng.bytes(16), "little") for _ in range(1024)]).T.copy(), device=dev)
+    inp["K3"] = ((X, Y, Z), torch.cat([rho, rho, glv.r_scalars(1024, dev)], dim=1))
+
+    groups, width, live, bits = 1024, 64, 47, 160
+    n = groups * width
+    X, Y, Z = (_rand_fp(torch, rng, n, dev, loose=True) for _ in range(3))
+    s = torch.as_tensor(rng.integers(0, 4096, size=(g1.R_LIMBS, n), dtype="int32"), device=dev)
+    s[bits // 12] &= (1 << (bits % 12)) - 1
+    s[bits // 12 + 1 :] = 0
+    pad = (torch.arange(n, device=dev) % width) >= live
+    for a, v in ((X, 0), (Y, 1), (Z, 0)):
+        a[:, pad] = torch.as_tensor(g1.fp_to_limbs(v), device=dev)[:, None]
+    s[:, pad] = 0
+    inp["K3_prove"] = ((X, Y, Z), s, bits)
+    inp["edges"] = ((eX, eY, eZ), len(sub), len(nonsub))
+    return inp
+
+
+def kernel_calls(inp: dict) -> dict:
+    """name → a no-argument call that launches that kernel once on its
+    main-path inputs."""
+    from cess_tpu_torch.ops import g1, glv, h2c
+
+    pts3, s3 = inp["K3"]
+    ptsp, sp, bp = inp["K3_prove"]
+    return {
+        "K1": lambda: h2c._map_pairs_kernel(*inp["K1"]),
+        "K4": lambda: h2c._pow_c1(inp["K4"]),
+        "K2": lambda: glv.glv_fold(*inp["K2"], clear=True),
+        "K3": lambda: g1.scalar_mul_ladder(pts3, s3, bits=255),
+        "K3_prove": lambda: g1.scalar_mul_ladder(ptsp, sp, bits=bp),
+    }
+
+
+def _ops_ms(muls) -> float:
+    n_mul, n_sqr = muls
+    return ((n_mul - n_sqr) * IMAD_PER_FP_MUL + n_sqr * IMAD_PER_FP_SQR) / IMAD_PER_S * 1e3
+
+
+def phase_kernels(torch, dev) -> dict:
+    import numpy as np
+
+    from cess_tpu_torch.ops import bls12_381 as bls
+    from cess_tpu_torch.ops import g1, glv, h2c
+
+    rng = np.random.default_rng(2025)
+    inp = kernel_inputs(torch, dev)
+    calls = kernel_calls(inp)
+    res = {}
+
+    # ---- K1 map (with K4 inside) on the chunk's pair count, edge u first
+    u, sgn, exc = inp["K1"]
+    n_pairs = u.shape[2]
+    got = calls["K1"]()
+    want, plain_ms, muls = _twin(torch, lambda: h2c._map_pairs_core(u, sgn, exc))
+    err = _compare(torch, got, want)
+    ms = _time_ms(torch, calls["K1"], 3)
+    res["K1"] = _row("K1 map (SSWU pair map + E' add + isogeny, incl. its K4 launch)",
+                     "cess_tpu_torch/csrc/map.cu", "cess_tpu/ops/h2c.py:542",
+                     ms, plain_ms, muls, (33 * 2 + 4 + 99) * 4 * n_pairs, err)
+    say("1-K1", lanes=n_pairs, max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    if err:
+        fail("K1 map kernel disagrees with its twin")
+
+    # ---- K4 pow chain on the map's 2N chain inputs
+    t = inp["K4"]
+    got = calls["K4"]()
+    want, plain_ms, muls = _twin(torch, lambda: h2c._pow_c1_plain(t))
+    err = _compare(torch, [got], [want])
+    ms = _time_ms(torch, calls["K4"], 3)
+    res["K4"] = _row("K4 pow chain t^((p-3)/4)", "cess_tpu_torch/csrc/powc1.cu",
+                     "cess_tpu/ops/h2c.py:263", ms, plain_ms, muls,
+                     2 * 33 * 4 * 2 * n_pairs, err)
+    say("1-K4", lanes=2 * n_pairs, max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    if err:
+        fail("K4 pow kernel disagrees with its twin")
+
+    # ---- K2 GLV fold: clear=True on the chunk's lanes, clear=False on 265
+    X, Y, Z, k1, k2 = inp["K2"]
+    got = calls["K2"]()
     want, plain_ms, muls = _twin(torch, lambda: glv._glv_core(X, Y, Z, k1, k2, True))
     err = _compare(torch, got, want)
-    ms = _time_ms(torch, lambda: glv.glv_fold(X, Y, Z, k1, k2, clear=True), 3)
+    ms = _time_ms(torch, calls["K2"], 5)
     n_u = 265
     got2 = glv.glv_fold(X[:, :n_u], Y[:, :n_u], Z[:, :n_u], k1[:, :n_u], k2[:, :n_u], clear=False)
     want2, _, _ = _twin(torch, lambda: glv._glv_core(
         X[:, :n_u], Y[:, :n_u], Z[:, :n_u], k1[:, :n_u], k2[:, :n_u], False))
     err2 = _compare(torch, got2, want2)
+    # lane counts off every block and grid size (the persistent grid's
+    # stride loop, a partial last block)
+    lane_errs = {}
+    for m in LANE_COUNTS:
+        sl = [t[:, :m] for t in (X, Y, Z, k1, k2)]
+        lane_errs[m] = _compare(torch, glv.glv_fold(*sl, clear=True),
+                                glv._glv_core(*sl, True))
     res["K2"] = _row("K2 GLV fold (clear=True, chunk lanes)", "cess_tpu_torch/csrc/glv.cu",
                      "cess_tpu/ops/glv.py:237", ms, plain_ms, muls,
-                     (3 * 33 + 2 * 12 + 3 * 33) * 4 * n_pairs, max(err, err2))
+                     (3 * 33 + 2 * 12 + 3 * 33) * 4 * n_pairs,
+                     max([err, err2] + list(lane_errs.values())))
     say("1-K2", lanes=n_pairs, max_abs_err=err, clear_false_lanes=n_u,
-        clear_false_err=err2, ms=ms, plain_ms=plain_ms)
-    if err or err2:
+        clear_false_err=err2, lane_count_errs=lane_errs, ms=ms, plain_ms=plain_ms)
+    if err or err2 or any(lane_errs.values()):
         fail("K2 GLV kernel disagrees with its twin")
 
-    # ---- K3 ladder: the verify chunk's one launch (3 × 1024 lanes at 255
-    # bits), bits 128 and 224 at 1024 lanes, and the r-chain mask
-    n3 = 3 * 1024
-    X, Y, Z = (_rand_fp(torch, rng, n3, dev, loose=True) for _ in range(3))
-    X[:, :ne], Y[:, :ne], Z[:, :ne] = eX, eY, eZ
+    # ---- K3 ladder on the verify chunk's one launch; then prove_batch's
+    # launch, random 255-bit scalars, bits 128 and 224, other lane counts
+    # (both thread mappings), and the r-chain mask
+    (X, Y, Z), scal = inp["K3"]
+    n3 = X.shape[1]
+    got = calls["K3"]()
+    want, plain_ms, _ = _twin(torch, lambda: g1.batch_scalar_mul((X, Y, Z), scal, 255))
+    err = _compare(torch, got, want)
+    ms = _time_ms(torch, calls["K3"], 10)
+    work = g1.ladder_work(scal, 255)
+    errs = {}
+    ptsp, sp, bp = inp["K3_prove"]
+    errs["prove"] = _compare(torch, calls["K3_prove"](), g1.batch_scalar_mul(ptsp, sp, bp))
+    prove_ms = _time_ms(torch, calls["K3_prove"], 5)
+    prove_work = g1.ladder_work(sp, bp)
     s = torch.as_tensor(rng.integers(0, 4096, size=(g1.R_LIMBS, n3), dtype="int32"), device=dev)
     s[g1.R_LIMBS - 1] &= 0x7  # < 2^255
     s[:, :3] = torch.as_tensor(g1.scalars_to_limbs([0, 1, bls.R - 1]).T.copy(), device=dev)
-    got = g1.scalar_mul_ladder((X, Y, Z), s, bits=255)
-    want, plain_ms, muls = _twin(torch, lambda: g1.batch_scalar_mul((X, Y, Z), s, 255))
-    err = _compare(torch, got, want)
-    ms = _time_ms(torch, lambda: g1.scalar_mul_ladder((X, Y, Z), s, bits=255), 3)
-    errs = {}
+    errs["random255"] = _compare(torch, g1.scalar_mul_ladder((X, Y, Z), s, bits=255),
+                                 g1.batch_scalar_mul((X, Y, Z), s, 255))
     for bits in (128, 224):
         sb = s[:, :1024].clone()
         sb[bits // 12] &= (1 << (bits % 12)) - 1
         sb[bits // 12 + 1 :] = 0
         pts = (X[:, :1024], Y[:, :1024], Z[:, :1024])
-        errs[bits] = _compare(torch, g1.scalar_mul_ladder(pts, sb, bits=bits),
-                              g1.batch_scalar_mul(pts, sb, bits))
+        errs[f"bits{bits}"] = _compare(torch, g1.scalar_mul_ladder(pts, sb, bits=bits),
+                                       g1.batch_scalar_mul(pts, sb, bits))
+    big = max(LANE_COUNTS)
+    bX, bY, bZ = (_rand_fp(torch, rng, big, dev, loose=True) for _ in range(3))
+    bs = torch.as_tensor(rng.integers(0, 4096, size=(g1.R_LIMBS, big), dtype="int32"), device=dev)
+    bs[g1.R_LIMBS - 1] &= 0x7
+    for m in LANE_COUNTS:
+        pts = (bX[:, :m], bY[:, :m], bZ[:, :m])
+        errs[f"lanes{m}"] = _compare(torch, g1.scalar_mul_ladder(pts, bs[:, :m], bits=255),
+                                     g1.batch_scalar_mul(pts, bs[:, :m], 255))
+    (eX, eY, eZ), n_sub, n_nonsub = inp["edges"]
     mask = glv.subgroup_mask(eX, eY, eZ).tolist()
-    want_mask = [1] * len(sub) + [0] * len(nonsub) + [1]
-    res["K3"] = _row("K3 double-and-add ladder (255 bits, 3072 lanes)",
+    want_mask = [1] * n_sub + [0] * n_nonsub + [1]
+    res["K3"] = _row("K3 double-and-add ladder (3072 lanes: rho < 2^128, r)",
                      "cess_tpu_torch/csrc/ladder.cu", "cess_tpu/ops/g1.py:476",
-                     ms, plain_ms, muls, (3 * 33 + 22 + 3 * 33) * 4 * n3,
+                     ms, plain_ms, work, (3 * 33 + 22 + 3 * 33) * 4 * n3,
                      max([err] + list(errs.values())))
-    say("1-K3", lanes=n3, max_abs_err=err, err_bits128=errs[128],
-        err_bits224=errs[224], subgroup_mask=mask, ms=ms, plain_ms=plain_ms)
+    say("1-K3", lanes=n3, max_abs_err=err, check_errs=errs, subgroup_mask=mask,
+        ms=ms, plain_ms=plain_ms, fp_products_needed=work[0], squarings_needed=work[1],
+        prove_lanes=sp.shape[1], prove_bits=bp, prove_ms=prove_ms,
+        prove_bound_ms=_ops_ms(prove_work), prove_fp_products_needed=prove_work[0])
     if err or any(errs.values()):
         fail("K3 ladder kernel disagrees with its twin")
     if mask != want_mask:

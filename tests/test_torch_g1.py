@@ -104,6 +104,52 @@ def test_ladder_twin_matches_jax_ladder(bits):
     assert host == [p.mul(k) for p, k in zip(pts, scalars)]
 
 
+def test_ladder_work_counts_what_the_inputs_need():
+    """One doubling (8 products, 2 squarings) per bit below a lane's top
+    set bit, one addition (12 products) per set bit, bits < `bits` only."""
+    rng = random.Random(9)
+    r128 = rng.getrandbits(128) | 1 << 127
+    cases = [0, 1, R, (1 << 127) + 1, r128]
+    s = np.stack([tg1.fp_to_limbs(v, tg1.R_LIMBS) for v in cases], 1)
+    hand = [(0, 0), (0, 1), (254, bin(R).count("1")), (127, 2), (127, bin(r128).count("1"))]
+    for (d, a), col in zip(hand, range(len(cases))):
+        assert tg1.ladder_work(s[:, col : col + 1], 255) == (8 * d + 12 * a, 2 * d)
+    d, a = map(sum, zip(*hand))
+    assert tg1.ladder_work(T(s), 255) == (8 * d + 12 * a, 2 * d)
+    # bits cuts the scalar: r mod 2^128 keeps its low 128 bits only
+    low = R & ((1 << 128) - 1)
+    assert tg1.ladder_work(s[:, 2:3], 128) == (
+        8 * (low.bit_length() - 1) + 12 * bin(low).count("1"), 2 * (low.bit_length() - 1))
+
+
+def test_pt_double_counts_its_two_squarings():
+    rng = np.random.default_rng(11)
+    p = tuple(T(_loose(rng, (3,))) for _ in range(3))
+    m0, s0 = tg1.MUL_COUNT[0], tg1.SQR_COUNT[0]
+    tg1.pt_double(p)
+    assert (tg1.MUL_COUNT[0] - m0, tg1.SQR_COUNT[0] - s0) == (8 * 3, 2 * 3)
+    m0, s0 = tg1.MUL_COUNT[0], tg1.SQR_COUNT[0]
+    tg1.pt_add(p, p)
+    assert (tg1.MUL_COUNT[0] - m0, tg1.SQR_COUNT[0] - s0) == (12 * 3, 0)
+
+
+def test_ladder_skip_premise_on_the_twin():
+    """What kernel K3 skips changes no coordinate: on 128-bit scalars the
+    255-bit ladder (127 leading steps from (0 : 1 : 0)) equals the
+    128-bit ladder limb for limb once canonical."""
+    from cess_tpu_torch.ops.h2c import _canon_mod_p
+
+    rng = random.Random(12)
+    pts = _points(rng)
+    scalars = [0, 1, (1 << 128) - 1, rng.getrandbits(128)]
+    X, Y, Z = (T(a.T.copy()) for a in tg1.points_to_projective(pts))
+    s = T(tg1.scalars_to_limbs(scalars).T.copy())
+    full = tg1.batch_scalar_mul((X, Y, Z), s, 255)
+    short = tg1.batch_scalar_mul((X, Y, Z), s, 128)
+    for a, b in zip(full, short):
+        assert torch.equal(_canon_mod_p(a), _canon_mod_p(b))
+
+
 def test_scalar_mul_batch_and_msm_match_host():
     rng = random.Random(8)
     pts = _points(rng)[:3]

@@ -74,7 +74,8 @@ def test_every_kernel_has_a_cuda_source():
         text = (PKG / "csrc" / src).read_text()
         assert "__global__" in text
         for fn in _cuda._SIGS[name]:
-            assert f'extern "C" int {fn}(' in text, (src, fn)
+            ret = "long long" if fn in _cuda._RESTYPES else "int"
+            assert f'extern "C" {ret} {fn}(' in text, (src, fn)
         assert 'extern "C" int cess_init(' in text
 
 
