@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops import bls12_381 as bls
 from ..ops import fr, g1, glv, podr2
 from ..ops.bls12_381 import G1Point
@@ -29,20 +30,6 @@ _PROVE_CHUNK = 1024
 
 # Challenge coefficients are 20-byte randoms.
 _COEFF_BITS = 160
-
-
-def resolve_device(device=None) -> torch.device:
-    """None → cuda.  Raises when CUDA is asked for and absent."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the port runs on the GPU (pass "
-                "device='cpu' for the plain tensor path)"
-            )
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 class TorchBackend(ProofBackend):

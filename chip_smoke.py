@@ -18,6 +18,16 @@ Phases, one line each on stdout:
      with one tampered μ isolates exactly that proof
   4  a `kernels` JSON line: launches on the B = 3072 run, time, twin
      time, bound and the check error of every kernel
+  5-rs  the Reed-Solomon data plane at bench.py's `bench_rs` geometry:
+     RS(2,1) segments of 8 MiB fragments, 640 of them (10 GiB of
+     survivors, fewer if host memory is short) reconstructed from
+     survivors [1, 2] and re-encoded by RSStream.run_batch from host
+     memory, on both GF(256) products, three passes each, every output
+     byte checked; pinned copy rates and the bus bound; one pass under
+     torch.profiler; segments, a partial slab, per-segment masks and
+     RS(12,4) against the port's gf256 reference.  The RS path has no
+     hand kernel (the JAX package computes it in plain XLA), so it adds
+     no `kernels` row.
 
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 non-zero before it.  Imports neither jax nor cess_tpu.
@@ -104,6 +114,7 @@ def main() -> None:
     if missing:
         fail(f"main path launched no {missing}")
     print(json.dumps({"kernels": rows}), flush=True)
+    phase_rs(torch, dev, card)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -520,10 +531,9 @@ def phase_matrix(torch, dev) -> None:
 # ------------------------------------------------------------ phase 3
 
 
-def _device_busy(torch, fn):
-    """fn() under torch.profiler → (its result, device busy ms, wall ms,
-    the largest device entries).  Busy is None where the trace holds no
-    device time (the profiler could not reach the card)."""
+def _device_rows(torch, fn):
+    """fn() under torch.profiler → (its result, [(device entry, ms)],
+    wall ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -536,6 +546,14 @@ def _device_busy(torch, fn):
     # device-side entries only: a CPU op's entry repeats its kernels' time
     rows = [(e.key.split("(")[0], e.self_device_time_total / 1e3)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return out, rows, wall_ms
+
+
+def _device_busy(torch, fn):
+    """fn() under torch.profiler → (its result, device busy ms, wall ms,
+    the largest device entries).  Busy is None where the trace holds no
+    device time (the profiler could not reach the card)."""
+    out, rows, wall_ms = _device_rows(torch, fn)
     busy = sum(ms for _, ms in rows)
     top = {k: round(ms, 3) for k, ms in sorted(rows, key=lambda r: -r[1])[:8]}
     return out, (busy or None), wall_ms, top
@@ -600,6 +618,253 @@ def phase_geometry(torch, dev, batch: int) -> dict:
     say("3-tampered", batch=64, false_at=[i for i, x in enumerate(v) if not x],
         seconds=round(time.perf_counter() - t0, 3))
     return launches
+
+
+# ------------------------------------------------------------ phase 5-rs
+
+# bench.py's bench_rs: RS(2,1) with 8 MiB fragments, 640 segments = 10 GiB
+# of survivors streamed from host memory, recovered from [1, 2].
+RS_FRAG = 8 << 20
+RS_SEGMENTS = 640
+RS_PRESENT = [1, 2]
+RS_PASSES = 3
+RS_PATHS = ("gather", "bitplane")
+
+
+def _host_available_bytes() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    fail("no MemAvailable in /proc/meminfo")
+
+
+def _first_mismatch(a, b, step: int):
+    """Index of the first segment where a and b differ, or None (compared
+    a slab at a time: no array-sized temporary)."""
+    import numpy as np
+
+    for o in range(0, len(a), step):
+        if not np.array_equal(a[o : o + step], b[o : o + step]):
+            return o + next(i for i in range(step) if not np.array_equal(a[o + i], b[o + i]))
+    return None
+
+
+def _copy_rates(torch, dev, nbytes: int, card: str) -> dict:
+    """Pinned host ↔ card copy rates on one slab's bytes, GB/s: each
+    direction alone (CUDA events, mean of 3), then both at once on two
+    streams (host clock around 3 rounds)."""
+    pin = [torch.empty(nbytes, dtype=torch.uint8, pin_memory=True) for _ in range(2)]
+    d = [torch.empty(nbytes, dtype=torch.uint8, device=dev) for _ in range(2)]
+    h2d_ms = _time_ms(torch, lambda: d[0].copy_(pin[0], non_blocking=True), 3)
+    d2h_ms = _time_ms(torch, lambda: pin[1].copy_(d[1], non_blocking=True), 3)
+    sa, sb = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        with torch.cuda.stream(sa):
+            d[0].copy_(pin[0], non_blocking=True)
+        with torch.cuda.stream(sb):
+            pin[1].copy_(d[1], non_blocking=True)
+    torch.cuda.synchronize()
+    both_ms = (time.perf_counter() - t0) / 3 * 1e3
+    rates = {"slab_bytes": nbytes, "h2d_GBps": nbytes / h2d_ms / 1e6,
+             "d2h_GBps": nbytes / d2h_ms / 1e6,
+             "both_at_once_GBps": 2 * nbytes / both_ms / 1e6}
+    say("5-rs-bus", card=card, **rates)
+    return rates
+
+
+def _host_rates(nbytes: int, card: str) -> dict:
+    """Host memory rates with RSStream's copy threads, GB/s: a copy into
+    pages touched before, and the same copy into a fresh array, whose
+    pages fault in as it is written (as a stream's result does)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from cess_tpu_torch.ops import rs
+
+    src = np.full(nbytes, 7, dtype=np.uint8)
+
+    def copy_into(dst) -> float:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(rs.HOST_THREADS) as pool:
+            parts = [rs._part(nbytes, p) for p in range(rs.HOST_THREADS)]
+            list(pool.map(lambda sl: np.copyto(dst[sl], src[sl]), parts))
+        return nbytes / (time.perf_counter() - t0) / 1e9
+
+    dst = np.empty(nbytes, dtype=np.uint8)
+    fresh = copy_into(dst)
+    rates = {"host_copy_GBps": copy_into(dst), "host_copy_fresh_pages_GBps": fresh}
+    try:
+        with open("/sys/kernel/mm/transparent_hugepage/enabled") as f:
+            thp = f.read().strip()
+    except OSError:
+        thp = None
+    say("5-rs-host", card=card, bytes=nbytes, threads=rs.HOST_THREADS,
+        transparent_hugepages=thp, **rates)
+    return rates
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def phase_rs(torch, dev, card: str) -> None:
+    import numpy as np
+
+    from cess_tpu_torch.ops import gf256, rs
+
+    t_start = time.perf_counter()
+    slab = rs.SLAB
+    seg = 2 * RS_FRAG
+    # survivors in, recovered data out and the re-encoded parity out
+    # (2 + 2 + 1 fragments a segment); four pinned staging slabs a stream
+    # pair; a fifth of what is free left over
+    avail = _host_available_bytes()
+    fit = int((avail * 0.8 - 8 * slab * seg) // (5 * RS_FRAG)) // slab * slab
+    segs = min(RS_SEGMENTS, fit)
+    if segs < slab:
+        fail(f"host memory too small for one RS slab ({avail} bytes free)")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    survivors = np.empty((segs, 2, RS_FRAG), dtype=np.uint8)
+    for o in range(0, segs, slab):
+        part = torch.randint(0, 256, (min(slab, segs - o), 2, RS_FRAG),
+                             dtype=torch.uint8, device=dev, generator=gen)
+        torch.from_numpy(survivors[o : o + len(part)]).copy_(part)
+    gib_in = survivors.nbytes / (1 << 30)
+    say("5-rs-setup", card=card, segments=segs, cut_from=RS_SEGMENTS if segs < RS_SEGMENTS else None,
+        host_available_bytes=avail, survivor_gib=gib_in, slab=slab,
+        host_threads=rs.HOST_THREADS, data_seconds=time.perf_counter() - t_start)
+
+    rates = _copy_rates(torch, dev, slab * seg, card)
+    _host_rates(2 * slab * seg, card)
+    nbytes_in, nbytes_out = survivors.nbytes, survivors.nbytes
+    bound_s = nbytes_in / (rates["h2d_GBps"] * 1e9) + nbytes_out / (rates["d2h_GBps"] * 1e9)
+    bound_both_s = (nbytes_in + nbytes_out) / (rates["both_at_once_GBps"] * 1e9)
+
+    # ---- both products, three passes each, every output byte checked:
+    # recovered row 1 is survivor row 0; the parity of the recovered data
+    # is survivor row 1 (so recovered row 0 is right too)
+    # one slab's product on the card, against its HBM bound (read the
+    # slab once, write it once)
+    x = torch.from_numpy(survivors[:slab]).to(dev)
+    slab_bound_ms = 2 * x.numel() / HBM_BYTES_PER_S * 1e3
+    inv = rs._inv_cached(2, 1, tuple(RS_PRESENT))
+    paths = {}
+    for path in RS_PATHS:
+        code = rs.segment_code(path=path)
+        op = code._mat_dev(inv)
+        paths[path] = {"product_slab_ms": _time_ms(torch, lambda: code._product(op, x), 3),
+                       "product_slab_bound_ms": slab_bound_ms}
+    x = None
+    for path in RS_PATHS:
+        code = rs.segment_code(path=path)
+        st_rec, st_enc = {}, {}
+        rec_stream = rs.RSStream(code, present=RS_PRESENT, stages=st_rec)
+        enc_stream = rs.RSStream(code, stages=st_enc)
+        # warm one slab each: pinned staging, allocator, cuBLAS handle
+        enc_stream.run_batch(rec_stream.run_batch(survivors[:slab]))
+        st_rec.clear()
+        st_enc.clear()
+        rec_s, enc_s = [], []
+        for _ in range(RS_PASSES):
+            rec = par = None
+            t0 = time.perf_counter()
+            rec = rec_stream.run_batch(survivors)
+            rec_s.append(time.perf_counter() - t0)
+            bad = _first_mismatch(rec[:, 1], survivors[:, 0], slab)
+            if bad is not None:
+                fail(f"RS {path} reconstruct: segment {bad} row 1 differs from survivor row 0")
+            t0 = time.perf_counter()
+            par = enc_stream.run_batch(rec)
+            enc_s.append(time.perf_counter() - t0)
+            bad = _first_mismatch(par[:, 0], survivors[:, 1], slab)
+            if bad is not None:
+                fail(f"RS {path} re-encode: segment {bad} parity differs from survivor row 1")
+        want = [gf256.rs_decode_ref(survivors[i], RS_PRESENT, 2, 1) for i in range(4)]
+        if any(not np.array_equal(rec[i], w) for i, w in enumerate(want)):
+            fail(f"RS {path} reconstruct: segments 0-3 differ from gf256.rs_decode_ref")
+        rec = par = None
+        r_med, e_med = _median(rec_s), _median(enc_s)
+        paths[path] |= {
+            "reconstruct_GiBps": gib_in / r_med, "reconstruct_seconds": rec_s,
+            "encode_GiBps": gib_in / e_med, "encode_seconds": enc_s,
+            "reconstruct_stage_seconds_per_pass": {k: v / RS_PASSES for k, v in st_rec.items()},
+            "encode_stage_seconds_per_pass": {k: v / RS_PASSES for k, v in st_enc.items()},
+            "reconstruct_share_of_bus_bound": bound_s / r_med,
+        }
+        say("5-rs-" + path, card=card, segments=segs, survivor_gib=gib_in, **paths[path])
+    faster = max(RS_PATHS, key=lambda p: paths[p]["reconstruct_GiBps"])
+
+    # ---- one reconstruct pass of the default product under the profiler
+    code = rs.segment_code()
+    stream = rs.RSStream(code, present=RS_PRESENT)
+    stream.run_batch(survivors[:slab])
+    rec, rows, wall_ms = _device_rows(torch, lambda: stream.run_batch(survivors))
+    if _first_mismatch(rec[:, 1], survivors[:, 0], slab) is not None:
+        fail("RS reconstruct under the profiler differs from survivor row 0")
+    rec = None
+    h2d = sum(ms for k, ms in rows if k.startswith("Memcpy HtoD"))
+    d2h = sum(ms for k, ms in rows if k.startswith("Memcpy DtoH"))
+    compute = sum(ms for k, ms in rows if not k.startswith("Memcpy"))
+    top = {k: round(ms, 3) for k, ms in sorted(rows, key=lambda r: -r[1])[:8]}
+    say("5-rs-trace", card=card, path=code.path, faster_path=faster, wall_ms=wall_ms,
+        device_compute_ms=compute, h2d_copy_ms=h2d, d2h_copy_ms=d2h,
+        compute_idle_share=1 - compute / wall_ms, top_device_ms=top,
+        bus_bound_ms=bound_s * 1e3, bus_bound_both_at_once_ms=bound_both_s * 1e3,
+        share_of_bus_bound=bound_s * 1e3 / wall_ms)
+    survivors = None
+    phase_rs_checks(torch, dev, card)
+    say("5-rs-done", card=card, seconds=time.perf_counter() - t_start)
+
+
+def phase_rs_checks(torch, dev, card: str) -> None:
+    """The stream's edges against the port's gf256 reference, both
+    products: a partial last slab, per-segment masks, RS(12,4)."""
+    import numpy as np
+
+    from cess_tpu_torch.ops import gf256, rs
+
+    rng = np.random.default_rng(5)
+    slab = rs.SLAB
+    n = RS_FRAG
+    # one full slab and a partial one of 5 segments
+    surv = rng.integers(0, 256, size=(slab + 5, 2, n), dtype=np.uint8)
+    last = range(slab, slab + 5)
+    want_last = {i: gf256.rs_decode_ref(surv[i], RS_PRESENT, 2, 1) for i in last}
+    # per-segment masks: every RS(2,1) survivor set four times, shuffled
+    data = rng.integers(0, 256, size=(12, 2, n), dtype=np.uint8)
+    allsh = np.stack([np.concatenate([d, gf256.rs_encode_ref(d, 2, 1)]) for d in data])
+    pats = [[0, 1], [0, 2], [1, 2]] * 4
+    rng.shuffle(pats)
+    grouped = np.stack([allsh[i, p] for i, p in enumerate(pats)])
+    want_grouped = np.stack([gf256.rs_decode_ref(grouped[i], p, 2, 1) for i, p in enumerate(pats)])
+    # RS(12,4) at 3 MiB, several byte-axis tiles and an odd tail
+    d12 = rng.integers(0, 256, size=(12, (1 << 18) + 13), dtype=np.uint8)
+    p12 = gf256.rs_encode_ref(d12, 12, 4)
+    all12 = np.concatenate([d12, p12])
+    pres12 = sorted(rng.choice(16, size=12, replace=False).tolist())
+    checks = {}
+    for path in RS_PATHS:
+        code = rs.segment_code(path=path)
+        got = rs.RSStream(code, present=RS_PRESENT).run_batch(surv)
+        checks[f"{path}_partial_slab"] = all(np.array_equal(got[i], want_last[i]) for i in last)
+        got = rs.RSStream(code, present=pats).run_batch(grouped)
+        checks[f"{path}_per_segment_masks"] = bool(
+            np.array_equal(got, want_grouped) and np.array_equal(got, data))
+        c12 = rs.RSCode(12, 4, path=path, tile=1 << 16)
+        checks[f"{path}_rs124"] = bool(
+            np.array_equal(c12.encode(d12).cpu().numpy(), p12)
+            and np.array_equal(rs.RSStream(c12).run(d12), p12)
+            and np.array_equal(c12.reconstruct(all12[pres12], pres12).cpu().numpy(), d12)
+            and np.array_equal(rs.RSStream(c12, present=pres12).run(all12[pres12]), d12))
+    say("5-rs-checks", card=card, present_rs124=pres12, **checks)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"RS checks against gf256 failed: {bad}")
 
 
 if __name__ == "__main__":

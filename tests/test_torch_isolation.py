@@ -14,7 +14,7 @@ import pytest
 import torch
 
 import cess_tpu_torch
-from cess_tpu_torch.ops import _cuda, g1, glv, h2c
+from cess_tpu_torch.ops import _cuda, g1, glv, h2c, rs
 from cess_tpu_torch.proof import TorchBackend, get_backend
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -88,6 +88,20 @@ def test_torch_backend_refuses_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         get_backend()  # the default backend is the card's
     assert TorchBackend(device="cpu").device.type == "cpu"
+
+
+def test_rs_codes_refuse_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rs.RSCode(2, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rs.segment_code()
+    assert rs.segment_code(device="cpu").device.type == "cpu"
+
+
+def test_module_walk_reaches_the_rs_data_plane():
+    assert {"cess_tpu_torch.ops.rs", "cess_tpu_torch.ops.gf256",
+            "cess_tpu_torch.device"} <= set(_all_modules())
 
 
 def test_kernel_library_refuses_without_cuda(monkeypatch):
