@@ -16,8 +16,9 @@ Phases, one line each on stdout:
      count read around that run; the same batch once more under
      torch.profiler for the device's busy time; a 64-proof sub-batch
      with one tampered μ isolates exactly that proof
-  4  a `kernels` JSON line: launches on the B = 3072 run, time, twin
-     time, bound and the check error of every kernel
+  4  a `kernels` JSON line (printed after phase 6): launches on the
+     B = 3072 run, time, twin time, bound and the check error of every
+     kernel
   5-rs  the Reed-Solomon data plane at bench.py's `bench_rs` geometry:
      RS(2,1) segments of 8 MiB fragments, 640 of them (10 GiB of
      survivors, fewer if host memory is short) reconstructed from
@@ -28,6 +29,22 @@ Phases, one line each on stdout:
      RS(12,4) against the port's gf256 reference.  The RS path has no
      hand kernel (the JAX package computes it in plain XLA), so it adds
      no `kernels` row.
+  6  the signature and attestation verifiers.  6-bls: BASELINE config 4
+     (50,000 BLS signatures) cut to 2,048 under 16 keys end to end —
+     bls_agg.batch_verify_signatures three times (signatures/s, seconds
+     in parse, hash, folds and pairing), a tampered signature (that
+     check under torch.profiler: device busy and idle share), the Δ/−Δ
+     malleation and a 64-signature bisection; 6-bls-k3: K3 against its
+     twin at that fold's launch (2,048 lanes × 128 bits) and at the full
+     width (65,536 lanes, 50,000 live), and both folds timed at the full
+     width.  6-vrf: 600 claims (one hour of 6 s slots) from 8
+     validators through vrf.batch_verify, a forged proof, verify_claims
+     on 64.  6-rsa: 1,024 RSA-2048 PKCS#1 v1.5 SHA-256 signatures
+     through rsa.verify_batch against host rsa.verify, the modexp's
+     values against pow and its limbs against the CPU's, its device ms
+     and bound.  6-ias: 64 attestation reports under a 2048-bit fixture
+     authority, batch against single verdicts.  The kernels line, printed
+     after phase 6, gives K3's launches in one BLS batch check.
 
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 non-zero before it.  Imports neither jax nor cess_tpu.
@@ -113,8 +130,10 @@ def main() -> None:
     missing = [r["name"] for r in rows if r["launches"] == 0]
     if missing:
         fail(f"main path launched no {missing}")
-    print(json.dumps({"kernels": rows}), flush=True)
     phase_rs(torch, dev, card)
+    k3 = next(r for r in rows if r["name"].startswith("K3"))
+    k3["launches_bls_check"] = phase_signatures(torch, dev, card)
+    print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -293,16 +312,8 @@ def kernel_inputs(torch, dev) -> dict:
     inp["K3"] = ((X, Y, Z), torch.cat([rho, rho, glv.r_scalars(1024, dev)], dim=1))
 
     groups, width, live, bits = 1024, 64, 47, 160
-    n = groups * width
-    X, Y, Z = (_rand_fp(torch, rng, n, dev, loose=True) for _ in range(3))
-    s = torch.as_tensor(rng.integers(0, 4096, size=(g1.R_LIMBS, n), dtype="int32"), device=dev)
-    s[bits // 12] &= (1 << (bits % 12)) - 1
-    s[bits // 12 + 1 :] = 0
-    pad = (torch.arange(n, device=dev) % width) >= live
-    for a, v in ((X, 0), (Y, 1), (Z, 0)):
-        a[:, pad] = torch.as_tensor(g1.fp_to_limbs(v), device=dev)[:, None]
-    s[:, pad] = 0
-    inp["K3_prove"] = ((X, Y, Z), s, bits)
+    pts, s = _loose_points_and_scalars(torch, rng, groups * width, live, bits, dev, group=width)
+    inp["K3_prove"] = (pts, s, bits)
     inp["edges"] = ((eX, eY, eZ), len(sub), len(nonsub))
     return inp
 
@@ -865,6 +876,337 @@ def phase_rs_checks(torch, dev, card: str) -> None:
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         fail(f"RS checks against gf256 failed: {bad}")
+
+
+# ------------------------------------------------------------ phase 6
+
+# BASELINE config 4 verifies 50,000 miner signatures.  End to end the
+# batch is cut to 2,048 under 16 keys: the host hashes every message and
+# decompresses every signature in pure Python (about 14 ms a signature,
+# in the JAX package as in the port).  The two device folds also run at
+# the full width, on tensors made on the card.
+BLS_FULL = 50_000
+BLS_SIGS = 2048
+BLS_KEYS = 16
+BLS_RUNS = 3
+BLS_BITS = 128  # bls_agg._RHO_BITS
+# One epoch of one hour at 6 s slots (BASELINE.md), from 8 validators.
+VRF_CLAIMS = 600
+VRF_VALIDATORS = 8
+# RSA-2048 PKCS#1 v1.5 SHA-256, the IAS report-signing key's shape.
+RSA_BITS = 2048
+RSA_SIGS = 1024
+IAS_REPORTS = 64
+
+
+def _loose_points_and_scalars(torch, rng, n: int, live: int, bits: int, dev, group: int | None = None):
+    """(33, n) random loose points and (22, n) random `bits`-bit scalars
+    on the card; lanes past `live` (in each group of `group` lanes, if
+    given) are the (∞, 0) pads the folds add."""
+    from cess_tpu_torch.ops import g1
+
+    X, Y, Z = (_rand_fp(torch, rng, n, dev, loose=True) for _ in range(3))
+    s = torch.as_tensor(rng.integers(0, 4096, size=(g1.R_LIMBS, n), dtype="int32"), device=dev)
+    s[bits // 12] &= (1 << (bits % 12)) - 1
+    s[bits // 12 + 1 :] = 0
+    lane = torch.arange(n, device=dev)
+    pad = (lane % group if group else lane) >= live
+    for a, v in ((X, 0), (Y, 1), (Z, 0)):
+        a[:, pad] = torch.as_tensor(g1.fp_to_limbs(v), device=dev)[:, None]
+    s[:, pad] = 0
+    return (X, Y, Z), s
+
+
+def phase_bls(torch, dev, card: str) -> int:
+    """6-bls: config 4's weighted batch check end to end (cut), its K3
+    launch against the twin, and both folds at the full width.  Returns
+    the K3 launches of one batch check."""
+    import numpy as np
+
+    from cess_tpu_torch.ops import bls12_381 as bls
+    from cess_tpu_torch.ops import bls_agg, g1
+    from cess_tpu_torch.ops.bls12_381 import G1Point
+
+    t_start = time.perf_counter()
+    keys = [bls.keygen(b"smoke-bls-key-%d" % k) for k in range(BLS_KEYS)]
+    pks = [bls.sk_to_pk(sk) for sk in keys]
+    msgs = [b"smoke-bls-msg-%06d" % i for i in range(BLS_SIGS)]
+    hashed = [bls.hash_to_g1(m) for m in msgs]
+    sig_pts = g1.scalar_mul_batch(hashed, [keys[i % BLS_KEYS] for i in range(BLS_SIGS)], device=dev)
+    triples = [(pks[i % BLS_KEYS], m, p.to_bytes()) for i, (m, p) in enumerate(zip(msgs, sig_pts))]
+    if triples[1][2] != bls.sign(keys[1], msgs[1]):
+        fail("6-bls: a signature crafted on the card differs from bls.sign")
+    craft_s = time.perf_counter() - t_start
+
+    # the main path: three timed runs, K3's count read around the first
+    runs, stages = [], []
+    for run in range(BLS_RUNS):
+        st = {}
+        if run == 0:
+            g1.scalar_mul_ladder.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = bls_agg.batch_verify_signatures(triples, b"smoke-seed", stages=st)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+        stages.append(st)
+        if run == 0:
+            k3_launches = g1.scalar_mul_ladder.launches
+        if ok is not True:
+            fail(f"6-bls: the honest batch of {BLS_SIGS} verified {ok}")
+    if k3_launches == 0:
+        fail("6-bls: the batch check launched no K3")
+
+    # one tampered signature, the batch check under the profiler: the
+    # same work as an honest check (every stage runs), a False verdict
+    checks = {"honest": True}
+    tampered = list(triples)
+    at = BLS_SIGS // 2 + 1
+    pk, msg, _ = tampered[at]
+    tampered[at] = (pk, msg, triples[at + 1][2])
+    ok, busy_ms, wall_ms, top = _device_busy(
+        torch, lambda: bls_agg.batch_verify_signatures(tampered, b"smoke-seed"))
+    checks["tampered_refused"] = ok is False
+    trace = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+             "device_idle_share": None if busy_ms is None else 1 - busy_ms / wall_ms,
+             "top_device_ms": top}
+    # tests/test_bls_agg.py:90-112: shift one signature by Δ and one by −Δ
+    (pk, m0, s0), (_, m1, s1) = triples[0], triples[BLS_KEYS]
+    delta = bls.G1_GENERATOR.mul(12345)
+    shifted = [(pk, m0, (G1Point.from_bytes(s0) + delta).to_bytes()),
+               (pk, m1, (G1Point.from_bytes(s1) + (-delta)).to_bytes())]
+    agg = bls_agg.aggregate_signatures([s for _, _, s in shifted])
+    checks["malleation_plain_aggregate_accepts"] = bls_agg.verify_aggregate([pk, pk], [m0, m1], agg)
+    checks["malleation_refused"] = not bls_agg.batch_verify_signatures(shifted, b"smoke-seed")
+    sub = list(triples[:64])
+    pk, msg, _ = sub[17]
+    sub[17] = (pk, msg, triples[18][2])
+    verdicts = bls_agg.verify_signatures(sub, b"smoke-seed")
+    checks["bisection_false_at"] = [i for i, v in enumerate(verdicts) if not v]
+    if not all(v for k, v in checks.items() if k != "bisection_false_at") or \
+            checks["bisection_false_at"] != [17]:
+        fail(f"6-bls checks: {checks}")
+
+    per_run = {k: [st[k] for st in stages] for k in stages[0]}
+    say("6-bls", card=card, signatures=BLS_SIGS, keys=BLS_KEYS,
+        cut=f"{BLS_FULL} -> {BLS_SIGS} signatures: the host hashes and decompresses "
+            "each in pure Python (so does the JAX package); the folds run at full width below",
+        craft_seconds=craft_s, verify_seconds=runs,
+        signatures_per_s=BLS_SIGS / _median(runs), stage_seconds=per_run,
+        k3_launches_per_check=k3_launches, checks=checks, profiled_check=trace)
+
+    # ---- K3 at this fold's launch (2,048 lanes × 128 bits) against its
+    # twin, then both folds at config 4's full width
+    rhos = bls_agg.batch_weights(bls_agg.agg_transcript(b"smoke-seed", triples), BLS_SIGS)
+    X, Y, Z, s, _ = g1._prepare([G1Point.from_bytes(t[2]) for t in triples], rhos, BLS_BITS, dev)
+    got = g1.scalar_mul_ladder((X, Y, Z), s, bits=BLS_BITS)
+    want, twin_ms, _ = _twin(torch, lambda: g1.batch_scalar_mul((X, Y, Z), s, BLS_BITS))
+    err = _compare(torch, got, want)
+    fold_ms = _time_ms(torch, lambda: g1.scalar_mul_ladder((X, Y, Z), s, bits=BLS_BITS), 10)
+    rng = np.random.default_rng(2026)
+    full = 1 << (BLS_FULL - 1).bit_length()
+    pts, sc = _loose_points_and_scalars(torch, rng, full, BLS_FULL, BLS_BITS, dev)
+    got = g1.scalar_mul_ladder(pts, sc, bits=BLS_BITS)
+    want, full_twin_ms, _ = _twin(torch, lambda: g1.batch_scalar_mul(pts, sc, BLS_BITS))
+    wide_err = _compare(torch, got, want)
+    got = want = None
+    width = 1 << (-(-BLS_FULL // BLS_KEYS) - 1).bit_length()
+    gpts, gsc = _loose_points_and_scalars(torch, rng, BLS_KEYS * width, -(-BLS_FULL // BLS_KEYS),
+                                          BLS_BITS, dev, group=width)
+    flat_ms = _time_ms(torch, lambda: g1._msm_kernel(*pts, sc, bits=BLS_BITS), 3)
+    grouped_ms = _time_ms(torch, lambda: g1._msm_kernel(*gpts, gsc, bits=BLS_BITS, group=width), 3)
+    ladder_ms = _time_ms(torch, lambda: g1.scalar_mul_ladder(pts, sc, bits=BLS_BITS), 3)
+    say("6-bls-k3", card=card, fold_lanes=X.shape[1], bits=BLS_BITS, max_abs_err=err,
+        fold_ladder_ms=fold_ms, fold_twin_ms=twin_ms,
+        fold_bound_ms=_ops_ms(g1.ladder_work(s, BLS_BITS)),
+        full_lanes=full, full_live=BLS_FULL, full_max_abs_err=wide_err,
+        full_ladder_ms=ladder_ms, full_twin_ms=full_twin_ms,
+        full_bound_ms=_ops_ms(g1.ladder_work(sc, BLS_BITS)),
+        full_flat_fold_ms=flat_ms, full_grouped_fold_ms=grouped_ms,
+        grouped_shape=[BLS_KEYS, width])
+    if err or wide_err:
+        fail("6-bls: K3 disagrees with its twin at 128 bits")
+    return k3_launches
+
+
+def phase_vrf(torch, dev, card: str) -> None:
+    """6-vrf: one epoch's claims through vrf.batch_verify on the card."""
+    from cess_tpu_torch.consensus import vrf
+    from cess_tpu_torch.ops import bls12_381 as bls
+    from cess_tpu_torch.ops import g1
+
+    t_start = time.perf_counter()
+    keys = [bls.keygen(b"smoke-vrf-val-%d" % v) for v in range(VRF_VALIDATORS)]
+    pks = [bls.sk_to_pk(sk) for sk in keys]
+    msgs = [vrf.vrf_input("cess-smoke", 1, b"\x11" * 32, slot) for slot in range(VRF_CLAIMS)]
+    proofs = [p.to_bytes() for p in g1.scalar_mul_batch(
+        [bls.hash_to_g1(m) for m in msgs],
+        [keys[i % VRF_VALIDATORS] for i in range(VRF_CLAIMS)], device=dev)]
+    claims = [(pks[i % VRF_VALIDATORS], m, vrf.proof_to_output(p), p)
+              for i, (m, p) in enumerate(zip(msgs, proofs))]
+    if vrf.prove(keys[3 % VRF_VALIDATORS], msgs[3]) != (claims[3][2], claims[3][3]):
+        fail("6-vrf: a proof crafted on the card differs from vrf.prove")
+    craft_s = time.perf_counter() - t_start
+
+    g1.scalar_mul_ladder.launches = 0
+    t0 = time.perf_counter()
+    ok = vrf.batch_verify(claims, b"smoke-epoch")
+    verify_s = time.perf_counter() - t0
+    launches = g1.scalar_mul_ladder.launches
+    at = VRF_CLAIMS // 2
+    out, proof = vrf.prove(bls.keygen(b"smoke-vrf-thief"), msgs[at])
+    bad = list(claims)
+    bad[at] = (pks[at % VRF_VALIDATORS], msgs[at], out, proof)
+    forged_refused = not vrf.batch_verify(bad, b"smoke-epoch")
+    sub = list(claims[:64])
+    sub[10] = (sub[10][0], sub[10][1], out, proof)
+    sub[40] = (sub[40][0], sub[40][1], claims[41][2], sub[40][3])
+    verdicts = vrf.verify_claims(sub, b"smoke-epoch")
+    false_at = [i for i, v in enumerate(verdicts) if not v]
+    say("6-vrf", card=card, claims=VRF_CLAIMS, validators=VRF_VALIDATORS,
+        craft_seconds=craft_s, verify_seconds=verify_s, claims_per_s=VRF_CLAIMS / verify_s,
+        k3_launches=launches, honest=ok, forged_refused=forged_refused,
+        verify_claims_false_at=false_at)
+    if ok is not True or not forged_refused or false_at != [10, 40] or launches == 0:
+        fail("6-vrf: a verdict is wrong or the batch launched no K3")
+
+
+def _rsa_key(rng):
+    """rsa.keygen's search, keeping p and q for CRT signing."""
+    from cess_tpu_torch.ops import rsa
+
+    while True:
+        p = rsa._random_prime(RSA_BITS // 2, rng)
+        q = rsa._random_prime(RSA_BITS // 2, rng)
+        n = p * q
+        if p != q and n.bit_length() == RSA_BITS:
+            d = pow(rsa.F4, -1, (p - 1) * (q - 1))
+            return rsa.RsaPrivateKey(n=n, e=rsa.F4, d=d), p, q
+
+
+def _crt_signer(key, p: int, q: int):
+    """PKCS#1 v1.5 SHA-256 signing by CRT: rsa.sign's bytes, 4x faster."""
+    import hashlib
+
+    from cess_tpu_torch.ops import rsa
+
+    dp, dq, qinv = key.d % (p - 1), key.d % (q - 1), pow(q, -1, p)
+    size = (key.n.bit_length() + 7) // 8
+
+    def sign(message: bytes) -> bytes:
+        em = rsa.emsa_pkcs1_v15(hashlib.sha256(message).digest(), size)
+        m = int.from_bytes(em, "big")
+        sp, sq = pow(m, dp, p), pow(m, dq, q)
+        return (sq + q * (qinv * (sp - sq) % p)).to_bytes(size, "big")
+
+    return sign
+
+
+def phase_rsa(torch, dev, card: str) -> None:
+    """6-rsa: batched RSA-2048 verification and IAS attestation."""
+    import base64
+
+    import numpy as np
+
+    from cess_tpu_torch.ops import bigmod, rsa
+    from cess_tpu_torch.proof import ias
+
+    t_start = time.perf_counter()
+    key, p, q = _rsa_key(random.Random(0x1A5))
+    pub = key.public()
+    sign = _crt_signer(key, p, q)
+    if sign(b"probe") != rsa.sign(key, b"probe"):
+        fail("6-rsa: CRT signing differs from rsa.sign")
+    msgs = [b"smoke-ias-report-%04d" % i for i in range(RSA_SIGS)]
+    pairs = [(m, sign(m)) for m in msgs]
+    m, sig = pairs[5]
+    pairs[5] = (m, sig[:-1] + bytes([sig[-1] ^ 1]))  # tampered
+    pairs[6] = (pairs[6][0], pairs[6][1][:-1])  # wrong length
+    pairs[7] = (pairs[7][0], (pub.n + 5).to_bytes(pub.size_bytes, "big"))  # s ≥ n
+    setup_s = time.perf_counter() - t_start
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = rsa.verify_batch(pub, pairs)
+    verify_s = time.perf_counter() - t0
+    want = [rsa.verify(pub, m, s) for m, s in pairs]
+    if got != want or got.count(False) != 3:
+        fail(f"6-rsa: batch verdicts differ from rsa.verify at "
+             f"{[i for i, (a, b) in enumerate(zip(got, want)) if a != b]}")
+
+    # the modexp alone: every value against pow, the card's limbs against
+    # the plain tensor path's on the CPU for 64 lanes, device time
+    ctx = bigmod.ModContext.create(pub.n)
+    sigs = [int.from_bytes(s, "big") for _, s in pairs]
+    sigs[6], sigs[7] = 0, pub.n - 1
+    limbs = torch.as_tensor(ctx.to_device_limbs(sigs), device=dev)
+    modexp = bigmod.make_modexp_65537(ctx)
+    out = modexp(limbs)
+    if ctx.from_device_limbs(out) != [pow(s, rsa.F4, pub.n) for s in sigs]:
+        fail("6-rsa: modexp values differ from pow(s, 65537, n)")
+    cpu_limbs = modexp(limbs[:64].cpu()).numpy()
+    if not np.array_equal(out[:64].cpu().numpy(), cpu_limbs):
+        fail("6-rsa: modexp limbs on the card differ from the CPU's")
+    modexp_ms = _time_ms(torch, lambda: modexp(limbs), 3)
+    nl = ctx.nlimbs
+    # 17 products, each (nl+2)² limb products and four folds: one of the
+    # nl + 8 high limbs, three of 2, each high limb nl multiply-adds
+    imads = RSA_SIGS * 17 * ((nl + 2) ** 2 + nl * (nl + 8) + 3 * 2 * nl)
+    say("6-rsa", card=card, key_bits=RSA_BITS, signatures=RSA_SIGS, setup_seconds=setup_s,
+        verify_seconds=verify_s, verifies_per_s=RSA_SIGS / verify_s,
+        false_at=[i for i, v in enumerate(got) if not v], verdicts_equal_host=True,
+        modexp_values_equal_pow=True, modexp_limbs_equal_cpu_lanes=64,
+        modexp_ms=modexp_ms, modexp_bound_ms=imads / IMAD_PER_S * 1e3,
+        modexp_bound_by="operations", modexp_imads=imads, limbs=nl,
+        pieces=-(-RSA_SIGS // max(1, bigmod.TEMP_BYTES // bigmod.lane_temp_bytes(nl))))
+
+    # ---- IAS: reports signed by this key under a certificate from a
+    # 2048-bit fixture authority, a bad signature, an untrusted issuer
+    # and an expired certificate among them
+    t0 = time.perf_counter()
+    root_der, root_priv = ias.fixture_authority(random.Random(0x5EED), bits=RSA_BITS)
+    roots = ias.RootStore.from_der([root_der])
+    t = ias.FIXED_VERIFY_TIME
+
+    def cert(issuer_cn, issuer_priv, not_after):
+        return base64.b64encode(ias.build_certificate(
+            "CESS Sim Report Signer", issuer_cn, pub, issuer_priv,
+            not_before=t - 86400, not_after=not_after, serial=7))
+
+    good = cert("CESS Sim Attestation Root", root_priv, t + 86400 * 365)
+    rogue = rsa.keygen(1024, random.Random(0xBAD))
+    untrusted = cert("Rogue Attestation Root", rogue, t + 86400 * 365)
+    expired = cert("CESS Sim Attestation Root", root_priv, t - 1)
+    reports = []
+    for i in range(IAS_REPORTS):
+        body = b'{"isvEnclaveQuoteStatus":"OK","id":%d}' % i
+        reports.append((base64.b64encode(sign(body)), good, body))
+    reports[3] = (base64.b64encode(bytes(b ^ 0xFF for b in base64.b64decode(reports[3][0]))),
+                  good, reports[3][2])
+    reports[9] = (reports[9][0], untrusted, reports[9][2])
+    reports[20] = (reports[20][0], expired, reports[20][2])
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batch = ias.verify_attestation_batch(reports, roots)
+    batch_s = time.perf_counter() - t0
+    singles = [ias.verify_attestation(*r, roots) for r in reports]
+    false_at = [i for i, v in enumerate(batch) if not v]
+    say("6-ias", card=card, reports=IAS_REPORTS, authority_bits=RSA_BITS, setup_seconds=setup_s,
+        batch_seconds=batch_s, reports_per_s=IAS_REPORTS / batch_s, false_at=false_at,
+        batch_equals_singles=batch == singles)
+    if batch != singles or false_at != [3, 9, 20]:
+        fail("6-ias: batch verdicts differ from verify_attestation or from [3, 9, 20]")
+
+
+def phase_signatures(torch, dev, card: str) -> int:
+    """Phase 6: BLS, VRF, RSA and IAS.  Returns K3's launches in one BLS
+    batch check."""
+    t0 = time.perf_counter()
+    launches = phase_bls(torch, dev, card)
+    phase_vrf(torch, dev, card)
+    phase_rsa(torch, dev, card)
+    say("6-done", card=card, seconds=time.perf_counter() - t0)
+    return launches
 
 
 if __name__ == "__main__":

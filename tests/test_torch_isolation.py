@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: importing cess_tpu_torch pulls in neither
 jax nor any module of the JAX package, its sources import neither, and
 its device entry points refuse to run without a card instead of falling
-back to the plain tensor path."""
+back to the plain tensor path or to a host fold."""
 
 import pkgutil
 import re
@@ -14,8 +14,9 @@ import pytest
 import torch
 
 import cess_tpu_torch
-from cess_tpu_torch.ops import _cuda, g1, glv, h2c, rs
-from cess_tpu_torch.proof import TorchBackend, get_backend
+from cess_tpu_torch.consensus import vrf
+from cess_tpu_torch.ops import _cuda, bigmod, bls_agg, g1, glv, h2c, rs, rsa
+from cess_tpu_torch.proof import TorchBackend, get_backend, ias
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "cess_tpu_torch"
@@ -102,6 +103,39 @@ def test_rs_codes_refuse_without_cuda(monkeypatch):
 def test_module_walk_reaches_the_rs_data_plane():
     assert {"cess_tpu_torch.ops.rs", "cess_tpu_torch.ops.gf256",
             "cess_tpu_torch.device"} <= set(_all_modules())
+
+
+def test_module_walk_reaches_the_signature_verifiers():
+    assert {"cess_tpu_torch.ops.bigmod", "cess_tpu_torch.ops.rsa",
+            "cess_tpu_torch.ops.bls_agg", "cess_tpu_torch.proof.ias",
+            "cess_tpu_torch.consensus", "cess_tpu_torch.consensus.vrf"} <= set(_all_modules())
+
+
+def test_signature_verifiers_refuse_without_cuda(monkeypatch):
+    """The default device is the card: without one every new entry point
+    raises, whatever the batch holds, and never takes a host fold."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    triple = (b"\x00" * 96, b"m", b"\x00" * 48)
+    claim = (b"\x00" * 96, b"m", b"\x00" * 32, b"\x00" * 48)
+    key = rsa.RsaPublicKey((1 << 1023) + 1)
+    roots = ias.RootStore(())
+    calls = [
+        lambda: bigmod.modexp_65537_batch([2], (1 << 511) + 1),
+        lambda: rsa.verify_batch(key, [(b"m", b"\x01" * key.size_bytes)]),
+        lambda: ias.verify_attestation_batch([(b"", b"", b"")], roots),
+        lambda: ias.verify_attestation(b"", b"", b"", roots),
+        lambda: bls_agg.batch_verify_signatures([triple]),
+        lambda: bls_agg.verify_signatures([triple]),
+        lambda: vrf.batch_verify([claim]),
+        lambda: vrf.verify_claims([claim]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    n = (1 << 127) + 1
+    assert bigmod.modexp_65537_batch([2], n, device="cpu") == [pow(2, 65537, n)]
+    assert bls_agg.batch_verify_signatures([triple], device="cpu") is False
+    assert vrf.verify_claims([claim], device="cpu") == [False]
 
 
 def test_kernel_library_refuses_without_cuda(monkeypatch):
