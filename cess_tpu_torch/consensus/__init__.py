@@ -1,8 +1,9 @@
 """Consensus pieces of the port: the BLS-VRF slot claims and their
 batched verification (`vrf`, a copy of `cess_tpu/consensus/vrf.py` whose
-batch folds run on the card).  The slot-claim rules (`engine`) wait for
-the port's host layers."""
+batch folds run on the card) and the slot-claim rules (`engine`, a copy
+of `cess_tpu/consensus/engine.py`, host only)."""
 
-from . import vrf
+from . import engine, vrf
+from .engine import ClaimError, SlotClaim
 
-__all__ = ["vrf"]
+__all__ = ["engine", "vrf", "ClaimError", "SlotClaim"]

@@ -1,9 +1,11 @@
 """Batched SSWU hash-to-curve in PyTorch — the verifier's random oracle,
 kernels K1 (the pair map) and K4 (the t^((p−3)/4) chain).
 
-Host (`u_for_pairs`): expand_message_xmd + hash_to_field in pure Python,
-emitting per message two canonical field elements u0, u1 and two
-predicate bits each (sgn0(u), SSWU-exceptional(u)).
+Host (`u_for_pairs`): expand_message_xmd + hash_to_field in the native
+host library (native/blsmap.cpp through the port's native.py, threaded
+with the GIL released), emitting per message two canonical field
+elements u0, u1 and two predicate bits each (sgn0(u),
+SSWU-exceptional(u)); `_u_host_fallback` is the pure-Python path.
 Device (`_map_pairs_kernel`): two straight-line simplified-SWU maps onto
 the 11-isogenous curve E′ (RFC 9380 F.2), one complete E′ addition and
 the 11-isogeny back to E.  The output is the UNCLEARED point on E(Fp);
@@ -24,6 +26,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .. import native
 from . import _cuda, _sswu_g1
 from .bls12_381 import H_EFF_G1, P
 from .g1 import (
@@ -424,12 +427,24 @@ def _u_host_fallback(names, name_ids, indices, dst):
     return u, flags
 
 
-def u_for_pairs(names: list[bytes], name_ids, indices, dst: bytes):
+def xmd_u(names: list[bytes], name_ids, indices, dst: bytes,
+          threads: int = 8):
+    """(u, flags) as `_u_host_fallback` gives them, through the native
+    XMD batch on `threads` threads.  A name or DST longer than the native
+    framing takes goes the pure-Python way, as in the JAX package; a
+    failed build or load of the native library raises."""
+    if len(dst) > native.MAX_DST or any(len(n) > native.MAX_NAME for n in names):
+        return _u_host_fallback(names, name_ids, indices, dst)
+    return native.xmd_u_indexed(names, name_ids, indices, dst, threads=threads)
+
+
+def u_for_pairs(names: list[bytes], name_ids, indices, dst: bytes,
+                threads: int = 8):
     """Host front half: (u_limbs (33, 2, N), sgn (2, N), exc (2, N))
-    numpy arrays for the map."""
+    numpy arrays for the map, via the native XMD batch (`xmd_u`)."""
     name_ids = np.ascontiguousarray(name_ids, dtype=np.uint32)
     indices = np.ascontiguousarray(indices, dtype=np.uint64)
-    u, flags = _u_host_fallback(names, name_ids, indices, dst)
+    u, flags = xmd_u(names, name_ids, indices, dst, threads)
     u_limbs = np.swapaxes(u_bytes_to_limbs(u), 1, 2)  # (33, 2, N)
     f = flags.astype(np.int32)
     sgn = np.stack([f & 1, (f >> 2) & 1])

@@ -39,6 +39,7 @@ import hashlib
 from dataclasses import dataclass
 from functools import lru_cache
 
+from .. import native
 from . import bls12_381 as bls
 from .bls12_381 import G1Point, G2Point, R
 
@@ -122,9 +123,18 @@ def chunk_point(name: bytes, index: int) -> G1Point:
 def chunk_points_batch(
     pairs: list[tuple[bytes, int]], threads: int = 8
 ) -> list[G1Point]:
-    """Batched H(name ‖ i), host only (the cached scalar path)."""
-    del threads
-    return [chunk_point(name, index) for name, index in pairs]
+    """Batched H(name ‖ i) through the native hash-to-curve kernel
+    (native/blsmap.cpp, `threads` threads) — bit-identical to chunk_point
+    (tests/test_torch_native.py).  A batch holding a message longer than
+    the native framing takes goes the cached scalar path, as in the JAX
+    package; a failed build or load of the native library raises."""
+    msgs = [name + b"/" + index.to_bytes(8, "little") for name, index in pairs]
+    if any(len(m) > native.MAX_MSG for m in msgs):
+        return [chunk_point(name, index) for name, index in pairs]
+    return [
+        G1Point.infinity() if x == 0 and y == 0 else G1Point(x, y)
+        for x, y in native.hash_to_g1_batch(msgs, H_DST, threads=threads)
+    ]
 
 
 def split_sectors(chunk: bytes, s: int) -> list[int]:

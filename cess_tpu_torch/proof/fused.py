@@ -18,9 +18,10 @@ folds and the 255-bit [r] chain — run as one K3 launch at 255 bits: a
 leading zero bits, so every coordinate equals the separate ladders' mod
 p, and the card runs one pass of 255 steps instead of three passes.
 
-Host preparation of chunk k+1 (pure-Python XMD hashing, limb packing,
-lane maps) runs on a one-worker prefetch thread while chunk k's kernels
-run; every chunk is padded to CHUNK proofs so the kernels see one shape.
+Host preparation of chunk k+1 (the native XMD hashing, which releases
+the GIL, limb packing, lane maps) runs on a one-worker prefetch thread
+while chunk k's kernels run; every chunk is padded to CHUNK proofs so
+the kernels see one shape.
 
 Verdicts are bit-identical to the host reference (ops/podr2.py
 batch_verify): same ρ transcript, same zip-truncation semantics, same
@@ -486,7 +487,7 @@ def craft_sigmas(names: list[bytes], challenge, scalars: list[int],
 
 
 def _xmd_u(names, name_ids, indices):
-    """Host expand_message_xmd batch (pure Python)."""
+    """Host expand_message_xmd batch (native, 8 threads: `h2c.xmd_u`)."""
     if len(name_ids) == 0:
         return np.zeros((0, 2, 48), dtype=np.uint8), np.zeros((0,), dtype=np.uint8)
-    return h2c._u_host_fallback(names, name_ids, indices, podr2.H_DST)
+    return h2c.xmd_u(names, name_ids, indices, podr2.H_DST, threads=8)

@@ -4,6 +4,7 @@
 
 Phases, one line each on stdout:
   0  setup: card name and power limit, torch/CUDA versions, kernel build
+     and the native host library's build (g++, beside the nvcc builds)
   1  each hand-written kernel (K1 map, K4 pow chain, K2 GLV fold, K3
      ladder) against its plain tensor twin on the card, at the shapes and
      (for K3) the scalars the verify path gives it (`kernel_inputs`), K3
@@ -15,8 +16,11 @@ Phases, one line each on stdout:
      B = 3072 crafted proofs verify all True with every kernel's launch
      count read around that run; the same batch once more under
      torch.profiler for the device's busy time; a 64-proof sub-batch
-     with one tampered μ isolates exactly that proof
-  4  a `kernels` JSON line (printed after phase 6): launches on the
+     with one tampered μ isolates exactly that proof; which XMD path
+     hashed the chunk points (`xmd`: native or pure) and the stage split;
+     3-host times the check's host steps alone (pk and σ decompression,
+     encoding, transcript, one chunk's native XMD)
+  4  a `kernels` JSON line (printed after phase 7-sim): launches on the
      B = 3072 run, time, twin time, bound and the check error of every
      kernel
   5-rs  the Reed-Solomon data plane at bench.py's `bench_rs` geometry:
@@ -31,7 +35,7 @@ Phases, one line each on stdout:
      no `kernels` row.
   6  the signature and attestation verifiers.  6-bls: BASELINE config 4
      (50,000 BLS signatures) cut to 2,048 under 16 keys end to end —
-     bls_agg.batch_verify_signatures three times (signatures/s, seconds
+     bls_agg.batch_verify_signatures once (signatures/s, seconds
      in parse, hash, folds and pairing), a tampered signature (that
      check under torch.profiler: device busy and idle share), the Δ/−Δ
      malleation and a 64-signature bisection; 6-bls-k3: K3 against its
@@ -43,8 +47,15 @@ Phases, one line each on stdout:
      through rsa.verify_batch against host rsa.verify, the modexp's
      values against pow and its limbs against the CPU's, its device ms
      and bound.  6-ias: 64 attestation reports under a 2048-bit fixture
-     authority, batch against single verdicts.  The kernels line, printed
-     after phase 6, gives K3's launches in one BLS batch check.
+     authority, batch against single verdicts.  The kernels line gives
+     K3's launches in one BLS batch check.
+  7-sim  the chain and its multi-role simulator: NodeSim on the card
+     through tests/test_node_sim.py's scenario (sim_steps): fillers,
+     an RS upload, an honest audit round, a round after one miner's
+     service fragments are corrupted, recover_file; the state hash after
+     each step against tests/test_torch_chain.py's, the verdicts, each
+     step's seconds and K1-K4's launches in the two rounds
+     (`launches_sim` in the kernels line).
 
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 non-zero before it.  Imports neither jax nor cess_tpu.
@@ -52,11 +63,13 @@ non-zero before it.  Imports neither jax nor cess_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import random
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 # H100 SXM peaks (NVIDIA's published datasheet figures): 3.35 TB/s of
 # HBM, 67 TFLOP/s float32 outside the tensor cores = 33.5 T FFMA/s.  The
@@ -103,6 +116,7 @@ def main() -> None:
     except ImportError as e:
         fail(f"cess_tpu_torch is not importable here: {e}")
 
+    from cess_tpu_torch import native
     from cess_tpu_torch.ops import _cuda
 
     dev = torch.device("cuda:0")
@@ -112,11 +126,14 @@ def main() -> None:
     ).stdout.strip().splitlines()
     card = smi[0] if smi else "nvidia-smi unavailable"
     t0 = time.perf_counter()
-    _cuda.build()
-    _cuda.load_all()
-    build_s = time.perf_counter() - t0
+    with ThreadPoolExecutor(1) as pool:
+        host_build = pool.submit(_timed, native.load)
+        _cuda.build()
+        _cuda.load_all()
+        build_s = time.perf_counter() - t0
+        native_s = host_build.result()
     say("0-setup", card=card, torch=torch.__version__, cuda=torch.version.cuda,
-        build_seconds=round(build_s, 3),
+        build_seconds=round(build_s, 3), native_build_seconds=round(native_s, 3),
         ptxas={n: _ptxas_summary(n) for n in _cuda._SOURCES})
 
     results = phase_kernels(torch, dev)
@@ -133,6 +150,9 @@ def main() -> None:
     phase_rs(torch, dev, card)
     k3 = next(r for r in rows if r["name"].startswith("K3"))
     k3["launches_bls_check"] = phase_signatures(torch, dev, card)
+    sim_launches = phase_sim(torch, dev, card)
+    for name, r in zip(("K1", "K4", "K2", "K3"), rows):
+        r["launches_sim"] = sim_launches[name]
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -140,6 +160,12 @@ def main() -> None:
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}), flush=True)
+
+
+def _timed(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
 
 
 def _ptxas_summary(name: str) -> list[str]:
@@ -416,7 +442,9 @@ def phase_kernels(torch, dev) -> dict:
     work = g1.ladder_work(scal, 255)
     errs = {}
     ptsp, sp, bp = inp["K3_prove"]
-    errs["prove"] = _compare(torch, calls["K3_prove"](), g1.batch_scalar_mul(ptsp, sp, bp))
+    want_prove, prove_twin_ms, _ = _twin(torch, lambda: g1.batch_scalar_mul(ptsp, sp, bp))
+    errs["prove"] = _compare(torch, calls["K3_prove"](), want_prove)
+    want_prove = None
     prove_ms = _time_ms(torch, calls["K3_prove"], 5)
     prove_work = g1.ladder_work(sp, bp)
     s = torch.as_tensor(rng.integers(0, 4096, size=(g1.R_LIMBS, n3), dtype="int32"), device=dev)
@@ -448,7 +476,7 @@ def phase_kernels(torch, dev) -> dict:
                      max([err] + list(errs.values())))
     say("1-K3", lanes=n3, max_abs_err=err, check_errs=errs, subgroup_mask=mask,
         ms=ms, plain_ms=plain_ms, fp_products_needed=work[0], squarings_needed=work[1],
-        prove_lanes=sp.shape[1], prove_bits=bp, prove_ms=prove_ms,
+        prove_lanes=sp.shape[1], prove_bits=bp, prove_ms=prove_ms, prove_twin_ms=prove_twin_ms,
         prove_bound_ms=_ops_ms(prove_work), prove_fp_products_needed=prove_work[0])
     if err or any(errs.values()):
         fail("K3 ladder kernel disagrees with its twin")
@@ -570,7 +598,24 @@ def _device_busy(torch, fn):
     return out, (busy or None), wall_ms, top
 
 
+@contextlib.contextmanager
+def _counting(module, name: str, counts: dict, key: str):
+    """Count the calls of module.name into counts[key] while inside."""
+    fn = getattr(module, name)
+
+    def counted(*args, **kwargs):
+        counts[key] += 1
+        return fn(*args, **kwargs)
+
+    setattr(module, name, counted)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
 def phase_geometry(torch, dev, batch: int) -> dict:
+    from cess_tpu_torch import native
     from cess_tpu_torch.ops import g1, glv, h2c, podr2
     from cess_tpu_torch.ops.bls12_381 import R
     from cess_tpu_torch.ops.podr2 import Challenge, Podr2Params
@@ -595,17 +640,23 @@ def phase_geometry(torch, dev, batch: int) -> dict:
                 "K2": glv.glv_fold, "K3": g1.scalar_mul_ladder}
     for f in counters.values():
         f.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    verdicts = backend.verify_batch(pk, items, b"bench-seed", params)
-    torch.cuda.synchronize()
-    verify_s = time.perf_counter() - t0
+    xmd_calls = {"native": 0, "pure": 0}
+    with _counting(native, "xmd_u_indexed", xmd_calls, "native"), \
+            _counting(h2c, "_u_host_fallback", xmd_calls, "pure"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        verdicts = backend.verify_batch(pk, items, b"bench-seed", params)
+        torch.cuda.synchronize()
+        verify_s = time.perf_counter() - t0
     launches = {k: f.launches for k, f in counters.items()}
+    xmd = "native" if xmd_calls["native"] and not xmd_calls["pure"] else "pure"
     if verdicts != [True] * batch:
         fail(f"protocol batch: {verdicts.count(False)} of {batch} proofs rejected")
+    if xmd != "native":
+        fail(f"protocol batch: the chunk points were hashed {xmd_calls}")
     say("3-geometry", batch=batch, chunks=-(-batch // fused.CHUNK),
         verify_seconds=round(verify_s, 3), proofs_per_s=round(batch / verify_s, 3),
-        craft_seconds=round(craft_s, 3),
+        craft_seconds=round(craft_s, 3), xmd=xmd, xmd_calls=xmd_calls,
         stage_seconds={k: round(v, 3) for k, v in backend.stage_seconds.items()},
         launches=launches, all_true=True)
 
@@ -628,7 +679,44 @@ def phase_geometry(torch, dev, batch: int) -> dict:
         fail(f"tampered sub-batch verdicts {v}")
     say("3-tampered", batch=64, false_at=[i for i, x in enumerate(v) if not x],
         seconds=round(time.perf_counter() - t0, 3))
+    phase_host_split(items, params)
     return launches
+
+
+def phase_host_split(items, params) -> None:
+    """3-host: the host steps of one combined check on phase 3's batch,
+    each timed alone: the front end before the first chunk
+    (combined_check_fused's order) and the native XMD of every pair."""
+    import numpy as np
+
+    from cess_tpu_torch.ops import podr2
+    from cess_tpu_torch.ops.bls12_381 import G2Point
+    from cess_tpu_torch.proof import frontend, fused
+
+    pk = podr2.keygen(b"bench-tee")[1]
+    secs = {}
+    t0 = time.perf_counter()
+    G2Point.from_bytes(pk)
+    secs["pk_decompress"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    frontend.decompress_sigmas(items)
+    secs["sigma_decompress"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    encs = frontend.encode_proofs(items)
+    frontend.mu_in_range(frontend.mu_words(encs, params.s))
+    secs["encode_mu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batch_items = [podr2.BatchItem(n, c, p) for n, c, p in items]
+    podr2.batch_rho(podr2.batch_transcript(b"bench-seed", batch_items, encodings=encs), len(items))
+    secs["transcript_rho"] = time.perf_counter() - t0
+    ch = items[0][1]
+    chunk = items[: fused.CHUNK]
+    ids = np.repeat(np.arange(len(chunk), dtype=np.uint32), len(ch.indices))
+    idx = np.tile(np.asarray(ch.indices, dtype=np.uint64), len(chunk))
+    t0 = time.perf_counter()
+    fused._xmd_u([n for n, _, _ in chunk], ids, idx)
+    secs["xmd_native_one_chunk"] = time.perf_counter() - t0
+    say("3-host", batch=len(items), pairs_a_chunk=len(ids), seconds=secs)
 
 
 # ------------------------------------------------------------ phase 5-rs
@@ -690,8 +778,6 @@ def _host_rates(nbytes: int, card: str) -> dict:
     """Host memory rates with RSStream's copy threads, GB/s: a copy into
     pages touched before, and the same copy into a fresh array, whose
     pages fault in as it is written (as a stream's result does)."""
-    from concurrent.futures import ThreadPoolExecutor
-
     import numpy as np
 
     from cess_tpu_torch.ops import rs
@@ -888,7 +974,7 @@ def phase_rs_checks(torch, dev, card: str) -> None:
 BLS_FULL = 50_000
 BLS_SIGS = 2048
 BLS_KEYS = 16
-BLS_RUNS = 3
+BLS_RUNS = 1
 BLS_BITS = 128  # bls_agg._RHO_BITS
 # One epoch of one hour at 6 s slots (BASELINE.md), from 8 validators.
 VRF_CLAIMS = 600
@@ -938,7 +1024,7 @@ def phase_bls(torch, dev, card: str) -> int:
         fail("6-bls: a signature crafted on the card differs from bls.sign")
     craft_s = time.perf_counter() - t_start
 
-    # the main path: three timed runs, K3's count read around the first
+    # the main path: BLS_RUNS timed runs, K3's count read around the first
     runs, stages = [], []
     for run in range(BLS_RUNS):
         st = {}
@@ -1206,6 +1292,131 @@ def phase_signatures(torch, dev, card: str) -> int:
     phase_vrf(torch, dev, card)
     phase_rsa(torch, dev, card)
     say("6-done", card=card, seconds=time.perf_counter() - t0)
+    return launches
+
+
+# ------------------------------------------------------------ phase 7-sim
+
+# tests/test_node_sim.py's scenario (:17-33 and its corruption loop):
+# 5 miners, 3 validators, PoDR2 at 8 chunks × 4 sectors.  The chain
+# accounts fillers at protocol scale (8 MiB), so alice's 1 GiB purchase
+# needs 128 of them: 26 a miner is the fewest even split.  The cut is the
+# PoDR2 geometry (not 1,024 × 265): tagging is pure-Python host work in
+# both packages, about 30 ms a chunk, and would take hours at protocol
+# geometry; phase 3 verifies at that geometry.
+SIM_MINERS = 5
+SIM_VALIDATORS = 3
+SIM_FILLERS = 26
+SIM_CHUNKS = 8
+SIM_SECTORS = 4
+# The state hash after each step of sim_steps, as cess_tpu's NodeSim
+# reaches it on the CPU: the test holds both packages to these.
+SIM_HASHES_FILE = "tests/test_torch_chain.py"
+
+
+def sim_steps(sim):
+    """The scenario on a NodeSim of either package.  Yields (step, info)
+    after each step: genesis; setup (fillers, alice's purchase); upload
+    (info: file hash and content, two segments); honest_round (info: the
+    round's {miner: (idle_ok, service_ok)}); corrupt_round (info: the
+    corrupted miner and the results of the first round that challenges
+    it, its service fragments flipped bit for bit)."""
+    yield "genesis", None
+    for m in sim.miners:
+        sim.miner_add_fillers(m, SIM_FILLERS)
+    sim.add_user("alice")
+    yield "setup", None
+    content = bytes((i * 31 + 7) % 256 for i in range(sim.segment_bytes + 100))
+    yield "upload", (sim.user_upload("alice", "holiday-pics", content), content)
+    sim.rt.staking.end_era()  # fund the reward pool
+    yield "honest_round", sim.run_audit_round()
+    corrupted = next(m for m in sim.miners if sim.store[m].fragments)
+    for frag in sim.store[corrupted].fragments.values():
+        frag.data = bytes(b ^ 0xFF for b in frag.data)
+    results = {}
+    for _ in range(10):
+        sim.rt.audit.challenge_snap_shot = None
+        sim.rt.audit.challenge_duration = 0
+        sim.rt.audit.verify_duration = 0
+        sim.rt.next_block()
+        results = sim.run_audit_round()
+        if corrupted in results:
+            break
+    yield "corrupt_round", (corrupted, results)
+
+
+def sim_hashes() -> dict:
+    """STATE_HASHES of SIM_HASHES_FILE, read without importing it (the
+    test imports the JAX package)."""
+    import ast
+    from pathlib import Path
+
+    tree = ast.parse((Path(__file__).resolve().parent / SIM_HASHES_FILE).read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "STATE_HASHES" for t in node.targets):
+            return ast.literal_eval(node.value)
+    fail(f"no STATE_HASHES in {SIM_HASHES_FILE}")
+
+
+def phase_sim(torch, dev, card: str) -> dict:
+    """7-sim: NodeSim on the card through sim_steps.  Returns each
+    kernel's launches in the two audit rounds."""
+    from cess_tpu_torch.chain import checkpoint
+    from cess_tpu_torch.chain.node import NodeSim
+    from cess_tpu_torch.ops import g1, glv, h2c
+    from cess_tpu_torch.ops.podr2 import Podr2Params
+
+    want = sim_hashes()
+    counters = {"K1": h2c._map_pairs_kernel, "K4": h2c._pow_c1,
+                "K2": glv.glv_fold, "K3": g1.scalar_mul_ladder}
+    t_start = t0 = time.perf_counter()
+    sim = NodeSim(SIM_MINERS, SIM_VALIDATORS,
+                  params=Podr2Params(n=SIM_CHUNKS, s=SIM_SECTORS))
+    if sim.backend.name != "torch" or sim.device.type != "cuda":
+        fail(f"7-sim: NodeSim runs {sim.backend.name} on {sim.device}")
+    seconds, hashes, results = {"init": time.perf_counter() - t0}, {}, {}
+    steps = sim_steps(sim)
+    recovered = None
+    t0 = time.perf_counter()
+    for step, info in steps:
+        seconds[step] = time.perf_counter() - t0
+        hashes[step] = checkpoint.state_hash(sim.rt)
+        if step == "upload":
+            file_hash, content = info
+            recovered = sim.recover_file(file_hash) == content
+            # the rounds come next: count their launches
+            torch.cuda.synchronize()
+            for f in counters.values():
+                f.launches = 0
+        elif step == "honest_round":
+            results[step] = info
+        elif step == "corrupt_round":
+            torch.cuda.synchronize()
+            launches = {k: f.launches for k, f in counters.items()}
+            results[step] = {"corrupted": info[0], "results": info[1]}
+        t0 = time.perf_counter()
+    equal = {k: hashes[k] == want.get(k) for k in hashes}
+    say("7-sim", card=card, miners=SIM_MINERS, validators=SIM_VALIDATORS,
+        fillers_a_miner=SIM_FILLERS, params=[SIM_CHUNKS, SIM_SECTORS],
+        cut="PoDR2 geometry 1024 x 265 -> 8 x 4: pure-Python tagging, in both packages",
+        step_seconds=seconds, seconds=time.perf_counter() - t_start,
+        verify_stage_seconds=sim.backend.stage_seconds, state_hashes=hashes,
+        hashes_equal_cpu=equal, results=results, recover_equal=recovered,
+        launches_in_rounds=launches)
+    honest = results["honest_round"]
+    corrupted = results["corrupt_round"]
+    if not honest or any(v != (True, True) for v in honest.values()):
+        fail(f"7-sim: honest round {honest}")
+    if corrupted["results"].get(corrupted["corrupted"]) != (True, False):
+        fail(f"7-sim: corrupted round {corrupted}")
+    if not recovered:
+        fail("7-sim: recover_file differs from the upload")
+    if not all(equal.values()):
+        fail(f"7-sim: state hashes differ from {SIM_HASHES_FILE}: {equal}")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        fail(f"7-sim: the audit rounds launched no {missing}")
     return launches
 
 

@@ -14,6 +14,8 @@ import pytest
 import torch
 
 import cess_tpu_torch
+from cess_tpu_torch.chain import node
+from cess_tpu_torch.chain.runtime import Runtime
 from cess_tpu_torch.consensus import vrf
 from cess_tpu_torch.ops import _cuda, bigmod, bls_agg, g1, glv, h2c, rs, rsa
 from cess_tpu_torch.proof import TorchBackend, get_backend, ias
@@ -60,6 +62,11 @@ def test_sources_import_no_jax_and_no_cess_tpu():
         for m in _FORBIDDEN.finditer(f.read_text())
     ]
     assert offenders == []
+    scanned = {f.relative_to(PKG).as_posix() for f in files if PKG in f.parents}
+    host = {"native.py", "consensus/engine.py", "utils/codec.py", "utils/hashing.py",
+            "utils/keccak.py", "utils/rng.py", "chain/node.py", "chain/runtime.py",
+            "chain/checkpoint.py", "chain/offences.py"}
+    assert host <= scanned
 
 
 def test_forbidden_pattern_tells_the_port_from_the_reference():
@@ -109,6 +116,31 @@ def test_module_walk_reaches_the_signature_verifiers():
     assert {"cess_tpu_torch.ops.bigmod", "cess_tpu_torch.ops.rsa",
             "cess_tpu_torch.ops.bls_agg", "cess_tpu_torch.proof.ias",
             "cess_tpu_torch.consensus", "cess_tpu_torch.consensus.vrf"} <= set(_all_modules())
+
+
+def test_module_walk_reaches_the_host_layers():
+    chain = {f"cess_tpu_torch.chain.{m}" for m in (
+        "types", "state", "smt", "checkpoint", "session", "staking", "sminer",
+        "file_bank", "storage_handler", "audit", "tee_worker", "cacher", "oss",
+        "scheduler_credit", "fees", "offences", "rrsc", "evm", "runtime", "node")}
+    utils = {f"cess_tpu_torch.utils.{m}" for m in ("codec", "hashing", "rng", "keccak")}
+    assert chain | utils | {"cess_tpu_torch.native", "cess_tpu_torch.consensus.engine"} \
+        <= set(_all_modules())
+
+
+def test_node_sim_refuses_without_cuda(monkeypatch):
+    """NodeSim and the runtime's IAS registration run on the card unless
+    told otherwise, whichever proof backend is named."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for backend in ("torch", "cpu"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            node.NodeSim(backend=backend)
+    root, _ = node._sim_authority()
+    rt = Runtime(node.RuntimeConfig(ias_roots=ias.RootStore.from_der([root])))
+    pbk = bytes(96)
+    sign, cert, report = node._sim_report(pbk)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rt.tee_worker.cert_verifier(sign, cert, report, pbk)
 
 
 def test_signature_verifiers_refuse_without_cuda(monkeypatch):
