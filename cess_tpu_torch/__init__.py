@@ -6,7 +6,8 @@ imports bound to the port (ops/bls12_381.py, ops/_sswu_g1.py,
 ops/podr2.py, ops/gf256.py, ops/rsa.py, proof/backend.py,
 proof/cpu_backend.py, proof/frontend.py, proof/ias.py, the host parts of
 ops/bls_agg.py and consensus/vrf.py, consensus/engine.py, utils/ and
-chain/ with its multi-role simulator NodeSim); native.py binds the C++
+chain/ with its multi-role simulator NodeSim, node/ with the CLI of
+__main__.py, light/); native.py binds the C++
 host core (native/*.cpp, built with g++ at first use) that hashes the
 verify path's chunk points.  Device code is PyTorch plus four
 hand-written CUDA kernels under csrc/ (K1 map, K2 GLV fold, K3 ladder, K4

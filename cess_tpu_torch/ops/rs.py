@@ -31,6 +31,7 @@ compiles nothing, and the bytes are the same without it.
 from __future__ import annotations
 
 import os
+import threading
 import time as _time
 from concurrent.futures import ThreadPoolExecutor
 from functools import lru_cache
@@ -56,7 +57,60 @@ TEMP_BYTES = 1 << 28
 # memory bandwidth).
 HOST_THREADS = max(1, min(8, os.cpu_count() or 1))
 
+# ------------------------------------------------------- stage telemetry
+#
+# Always-on per-stage histograms of the streamed data plane, as
+# cess_tpu/ops/rs.py keeps them (the RS counterpart of
+# proof/torch_backend.py's proof_stage_registry): the registry is
+# process-wide and merged into the node's `system_metrics` (node/rpc.py);
+# CESS_STAGE_METRICS=0 switches the marks off, the same knob as the proof
+# stages.  The stage names are RSStream's (see its docstring).
+
 RS_STAGE_NAMES = ("pack", "matmul", "dispatch_wait", "unpack")
+STAGE_METRICS_ENABLED = os.environ.get(
+    "CESS_STAGE_METRICS", "1") not in ("0", "false", "off")
+
+_rs_stage_lock = threading.Lock()
+_rs_stage_registry = None
+_rs_stage_hists: dict = {}
+_rs_stage_counters: dict = {}
+
+_RS_STAGE_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+                     0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 15.0, 60.0)
+
+
+def rs_stage_registry():
+    """The process-wide metrics registry for the RS data plane (created
+    on first use; node/metrics is imported lazily to keep the ops↔node
+    package import graph acyclic)."""
+    global _rs_stage_registry
+    with _rs_stage_lock:
+        if _rs_stage_registry is None:
+            from ..node import metrics as m
+
+            reg = m.Registry()
+            for name in RS_STAGE_NAMES:
+                _rs_stage_hists[name] = m.Histogram(
+                    f"cess_rs_{name}_seconds",
+                    f"RS stream {name} stage time",
+                    buckets=_RS_STAGE_BUCKETS, registry=reg)
+            _rs_stage_counters["bytes"] = m.Counter(
+                "cess_rs_bytes_total",
+                "payload bytes through streamed RS kernels", reg)
+            _rs_stage_counters["streams"] = m.Counter(
+                "cess_rs_streams_total",
+                "RSStream passes executed", reg)
+            _rs_stage_counters["seconds"] = m.Counter(
+                "cess_rs_seconds_total",
+                "wall-clock seconds spent in RS streams", reg)
+            _rs_stage_registry = reg
+    return _rs_stage_registry
+
+
+def _observe_rs_stage(name: str, seconds: float) -> None:
+    rs_stage_registry()
+    _rs_stage_hists[name].observe(seconds)
+
 
 # The product `default_path` picks on the card: the faster of the two in
 # chip_smoke.py phase 5-rs on an H100 (PERF.md).
@@ -378,8 +432,10 @@ class RSStream:
     host seconds of each stage accumulate there per call: `pack` (gather
     into staging), `matmul` (enqueue of copies and product),
     `dispatch_wait` (blocking on the card: the device time the host did
-    not hide) and `unpack` (scatter out of staging).  On the CPU the same
-    loop runs without streams.
+    not hide) and `unpack` (scatter out of staging).  Every mark is also
+    observed into the process-wide cess_rs_* histograms, and each `run` or
+    `run_batch` adds its bytes, one stream and its seconds to the cess_rs_*
+    counters.  On the CPU the same loop runs without streams.
     """
 
     def __init__(
@@ -401,7 +457,18 @@ class RSStream:
         now = _time.perf_counter()
         if self.stages is not None:
             self.stages[name] = self.stages.get(name, 0.0) + (now - t0)
+        if STAGE_METRICS_ENABLED:
+            _observe_rs_stage(name, now - t0)
         return now
+
+    def _account(self, nbytes: int, t_start: float) -> None:
+        if STAGE_METRICS_ENABLED:
+            rs_stage_registry()
+            _rs_stage_counters["bytes"].inc(nbytes)
+            _rs_stage_counters["streams"].inc()
+            _rs_stage_counters["seconds"].inc(
+                _time.perf_counter() - t_start
+            )
 
     def _buffers(self, direction: str, nbytes: int) -> list[torch.Tensor]:
         """Two flat uint8 host buffers of at least `nbytes`, pinned when
@@ -502,6 +569,7 @@ class RSStream:
         `tile`-wide pieces.
         """
         code = self.code
+        t_start = _time.perf_counter()
         _check_shards(data, code.k, batched=False)
         if self.present is None:
             _check_data_rows(data.shape[0], code.k)
@@ -524,6 +592,7 @@ class RSStream:
             res[:, ca] = buf[0, :, cs]
 
         self._pipeline(mat, [(1, min(self.tile, n - o)) for o in offs], fill, drain)
+        self._account(data.nbytes, t_start)
         return res
 
     # -- segment-axis stream -------------------------------------------
@@ -581,6 +650,7 @@ class RSStream:
         recovery), with one cached inverse per mask.
         """
         code = self.code
+        t_start = _time.perf_counter()
         _check_shards(batch, code.k, batched=True)
         batch = _host_u8(batch)
         b, _, n = batch.shape
@@ -588,6 +658,7 @@ class RSStream:
             _check_data_rows(batch.shape[1], code.k)
             out = np.empty((b, code.m, n), dtype=np.uint8)
             self._stream_slabs(code._parity, batch, out, None)
+            self._account(batch.nbytes, t_start)
             return out
         pats = self._patterns(b)
         out = np.empty((b, code.k, n), dtype=np.uint8)
@@ -598,6 +669,7 @@ class RSStream:
             inv = _inv_cached(code.k, code.m, mask)
             rows = None if len(groups) == 1 else np.asarray(idx)
             self._stream_slabs(inv, batch, out, rows)
+        self._account(batch.nbytes, t_start)
         return out
 
 

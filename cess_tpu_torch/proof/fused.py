@@ -267,18 +267,34 @@ def combined_check_fused(
     out-of-range μ, or a σ outside the r-order subgroup → False;
     otherwise the combined equation decides.  `stages` accumulates
     wall seconds per stage (host_prep, chunk_program, dispatch_wait,
-    u_fold, pairing)."""
+    u_fold, pairing), and every mark is observed into the process-wide
+    `cess_proof_stage_*` histograms; a check that reaches its device
+    program also bumps the `cess_proof*` counters (proof/torch_backend.py,
+    as cess_tpu/proof/fused.py does)."""
     if not items:
         return True
+    from .torch_backend import (
+        STAGE_METRICS_ENABLED,
+        _observe_stage,
+        _stage_counters,
+        proof_stage_registry,
+    )
+
     device = torch.device(device)
+    metered = STAGE_METRICS_ENABLED
 
     def mark(name, t0):
+        if not metered and stages is None:
+            return t0
         now = _time.perf_counter()
         if stages is not None:
             stages[name] = stages.get(name, 0.0) + (now - t0)
+        if metered:
+            _observe_stage(name, now - t0)
         return now
 
-    t0 = _time.perf_counter()
+    check_t0 = _time.perf_counter()
+    t0 = check_t0
     try:
         pk_point = G2Point.from_bytes(pk)
     except ValueError:
@@ -338,15 +354,21 @@ def combined_check_fused(
     t0 = mark("dispatch_wait", t0)
 
     if not ok:
-        return False
-    lhs_pt = g1.projective_to_points(*(a.reshape(1, -1) for a in lhs))[0]
-    rhs_pt = g1.projective_to_points(*(a.reshape(1, -1) for a in rhs))[0]
-    exps_ints = fr.limbs_to_ints(exps)
-    us = list(podr2.u_generators(params.s))
-    rhs_pt = rhs_pt + _u_fold(us, exps_ints, device)
-    t0 = mark("u_fold", t0)
-    verdict = bls.pairing_check([(lhs_pt, -bls.G2_GENERATOR), (rhs_pt, pk_point)])
-    mark("pairing", t0)
+        verdict = False
+    else:
+        lhs_pt = g1.projective_to_points(*(a.reshape(1, -1) for a in lhs))[0]
+        rhs_pt = g1.projective_to_points(*(a.reshape(1, -1) for a in rhs))[0]
+        exps_ints = fr.limbs_to_ints(exps)
+        us = list(podr2.u_generators(params.s))
+        rhs_pt = rhs_pt + _u_fold(us, exps_ints, device)
+        t0 = mark("u_fold", t0)
+        verdict = bls.pairing_check([(lhs_pt, -bls.G2_GENERATOR), (rhs_pt, pk_point)])
+        mark("pairing", t0)
+    if metered:
+        proof_stage_registry()
+        _stage_counters["checks"].inc()
+        _stage_counters["proofs"].inc(len(items))
+        _stage_counters["seconds"].inc(_time.perf_counter() - check_t0)
     return verdict
 
 

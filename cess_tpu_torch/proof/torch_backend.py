@@ -13,6 +13,9 @@ test path).
 
 from __future__ import annotations
 
+import os
+import threading
+
 import numpy as np
 import torch
 
@@ -30,6 +33,67 @@ _PROVE_CHUNK = 1024
 
 # Challenge coefficients are 20-byte randoms.
 _COEFF_BITS = 160
+
+
+# ------------------------------------------------------- stage telemetry
+#
+# Always-on per-stage histograms of the combined check, in a process-wide
+# registry of their own, as cess_tpu/proof/xla_backend.py keeps them: any
+# host embedding a backend (node RPC, TEE client) exposes them without
+# threading a registry through the proof API, and the node's
+# `system_metrics` merges this registry into its exposition
+# (node/rpc.py).  The names are the JAX package's, so both expositions
+# list the same families: the fused path (proof/fused.py, the only verify
+# path of the port) marks host_prep, chunk_program, dispatch_wait, u_fold
+# and pairing, and `sigma_fold` (a stage of the JAX package's staged
+# path) stays at count 0.  A mark is one perf_counter call and one locked
+# observe; CESS_STAGE_METRICS=0 switches the marks off.
+
+STAGE_NAMES = ("host_prep", "u_fold", "sigma_fold", "chunk_program",
+               "dispatch_wait", "pairing")
+STAGE_METRICS_ENABLED = os.environ.get(
+    "CESS_STAGE_METRICS", "1") not in ("0", "false", "off")
+
+_stage_lock = threading.Lock()
+_stage_registry = None
+_stage_hists: dict = {}
+_stage_counters: dict = {}
+
+_STAGE_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+                  0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 15.0, 60.0)
+
+
+def proof_stage_registry():
+    """The process-wide metrics registry for the proof data plane
+    (created on first use; node/metrics is imported lazily to keep the
+    proof↔node package import graph acyclic)."""
+    global _stage_registry
+    with _stage_lock:
+        if _stage_registry is None:
+            from ..node import metrics as m
+
+            reg = m.Registry()
+            for name in STAGE_NAMES:
+                _stage_hists[name] = m.Histogram(
+                    f"cess_proof_stage_{name}_seconds",
+                    f"combined-check {name} stage time",
+                    buckets=_STAGE_BUCKETS, registry=reg)
+            _stage_counters["proofs"] = m.Counter(
+                "cess_proofs_verified",
+                "proof items covered by combined checks", reg)
+            _stage_counters["checks"] = m.Counter(
+                "cess_proof_checks",
+                "combined pairing checks executed", reg)
+            _stage_counters["seconds"] = m.Counter(
+                "cess_proof_verify_seconds_total",
+                "wall-clock seconds spent in combined checks", reg)
+            _stage_registry = reg
+    return _stage_registry
+
+
+def _observe_stage(name: str, seconds: float) -> None:
+    proof_stage_registry()
+    _stage_hists[name].observe(seconds)
 
 
 class TorchBackend(ProofBackend):

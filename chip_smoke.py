@@ -20,7 +20,7 @@ Phases, one line each on stdout:
      hashed the chunk points (`xmd`: native or pure) and the stage split;
      3-host times the check's host steps alone (pk and σ decompression,
      encoding, transcript, one chunk's native XMD)
-  4  a `kernels` JSON line (printed after phase 7-sim): launches on the
+  4  a `kernels` JSON line (printed after phase 8-node): launches on the
      B = 3072 run, time, twin time, bound and the check error of every
      kernel
   5-rs  the Reed-Solomon data plane at bench.py's `bench_rs` geometry:
@@ -56,6 +56,19 @@ Phases, one line each on stdout:
      each step against tests/test_torch_chain.py's, the verdicts, each
      step's seconds and K1-K4's launches in the two rounds
      (`launches_sim` in the kernels line).
+  8-node  the node layer: tests/test_zz_sync_testnet.py's scenario on the
+     port — three `python -m cess_tpu_torch run` validators on the card
+     (no --device) and a keyless `--replica`; from this process the port's
+     TEE, stash and miner clients register the TEE through the IAS check
+     (its receipt ok on every validator), create 2 fillers at PoDR2 8 x 4,
+     answer the OCW-committed challenge and verify it with TorchBackend()
+     on the card ({"miner-0": (True, True)}), a reward lands, every
+     validator finalizes >= 4 with one state hash and one block signature
+     there, and the port's LightClient reads a key from the replica
+     against its own verified anchor.  Prints each step's seconds, K1-K4's
+     launches around the prove and the verify (`launches_node` in the
+     kernels line) and the cess_proof_checks and cess_rs_streams_total
+     this process observed in phases 3 and 5-rs.
 
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 non-zero before it.  Imports neither jax nor cess_tpu.
@@ -151,8 +164,10 @@ def main() -> None:
     k3 = next(r for r in rows if r["name"].startswith("K3"))
     k3["launches_bls_check"] = phase_signatures(torch, dev, card)
     sim_launches = phase_sim(torch, dev, card)
+    node_launches = phase_node(torch, card)
     for name, r in zip(("K1", "K4", "K2", "K3"), rows):
         r["launches_sim"] = sim_launches[name]
+        r["launches_node"] = node_launches[name]
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1417,6 +1432,274 @@ def phase_sim(torch, dev, card: str) -> dict:
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         fail(f"7-sim: the audit rounds launched no {missing}")
+    return launches
+
+
+# ------------------------------------------------------------ phase 8-node
+
+# tests/test_zz_sync_testnet.py's scenario on the port: its spec
+# (build_spec_file), three validator processes and the roles played over
+# RPC from this process.  A fourth process runs as a keyless `--replica`,
+# which the light client reads from: a validator serves proofs at its
+# head, which has moved past any finalized anchor.
+NODE_VALIDATORS = ("alice", "bob", "charlie")
+NODE_BLOCK_MS = 500
+NODE_CHUNKS = 8
+NODE_SECTORS = 4
+NODE_HOST = "127.0.0.1"
+
+
+def _node_spec_file(path) -> str:
+    from cess_tpu_torch.node.chain_spec import _spec
+
+    spec = _spec("e2e", "CESS-TPU Sync E2E",
+                 accounts=[*NODE_VALIDATORS, "miner-0", "tee-stash", "tee-ctrl"],
+                 validators=list(NODE_VALIDATORS), block_time_ms=NODE_BLOCK_MS)
+    spec.finality_period = 4
+    spec.genesis = {"one_day_block": 20, "podr2_chunk_count": NODE_CHUNKS,
+                    "era_duration_blocks": 4}
+    out = path / "e2e-spec.json"
+    out.write_text(spec.to_json())
+    return str(out)
+
+
+def _free_ports(n: int) -> list[int]:
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind((NODE_HOST, 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def _wait_for(pred, timeout: float, what: str, poll: float = 0.4):
+    """pred()'s first truthy value; fails the phase after `timeout` s.
+    A node that is down or busy answers with an error: that counts as
+    not yet."""
+    from cess_tpu_torch.node.rpc import RpcError
+
+    t0 = time.monotonic()
+    while True:
+        try:
+            value = pred()
+        except (OSError, RpcError):
+            value = None
+        if value:
+            return value
+        if time.monotonic() - t0 > timeout:
+            fail(f"8-node: timed out after {timeout:.0f} s waiting for {what}")
+        time.sleep(poll)
+
+
+def phase_node(torch, card: str) -> dict:
+    """8-node: three `python -m cess_tpu_torch run` validators (no --device,
+    so on the card) and a replica; the TEE, its stash and a miner from the
+    port play the audit round over RPC with TorchBackend() on the card.
+    Returns each kernel's launches around the prove and the verify."""
+    import tempfile
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_node_", dir=root) as tmp:
+        tmp = Path(tmp)
+        spec_path = _node_spec_file(tmp)
+        ports = _free_ports(len(NODE_VALIDATORS) + 1)
+        procs: dict[str, subprocess.Popen] = {}
+        logs: dict[str, Path] = {}
+        try:
+            for i, name in enumerate([*NODE_VALIDATORS, "replica"]):
+                peers = ",".join(f"{NODE_HOST}:{p}" for p in ports[:3] if p != ports[i])
+                role = ["--replica"] if name == "replica" else ["--authority", name]
+                logs[name] = tmp / f"{name}.log"
+                with open(logs[name], "w") as log:
+                    procs[name] = subprocess.Popen(
+                        [sys.executable, "-m", "cess_tpu_torch", "run", "--chain", spec_path,
+                         "--rpc-port", str(ports[i]), "--peers", peers,
+                         "--checkpoint-gap", "3", *role],
+                        stdout=log, stderr=subprocess.STDOUT, cwd=root,
+                    )
+            return _node_run(torch, card, spec_path, ports, procs)
+        except BaseException:
+            for name, path in logs.items():
+                tail = path.read_text(errors="replace").splitlines()[-15:] if path.exists() else []
+                proc = procs.get(name)
+                print(f"8-node log {name} (exit {proc and proc.poll()}):", *tail, sep="\n  ",
+                      flush=True)
+            raise
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+            for proc in procs.values():
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    pass
+
+
+def _node_run(torch, card: str, spec_path: str, ports: list[int], procs: dict) -> dict:
+    from cess_tpu_torch.chain.types import TOKEN
+    from cess_tpu_torch.light import LightClient
+    from cess_tpu_torch.node.chain_spec import load_spec
+    from cess_tpu_torch.node.client import MinerClient, TeeClient
+    from cess_tpu_torch.node.metrics import parse_exposition
+    from cess_tpu_torch.node.rpc import rpc_call
+    from cess_tpu_torch.ops import g1, glv, h2c, rs
+    from cess_tpu_torch.ops.podr2 import Podr2Params
+    from cess_tpu_torch.proof import TorchBackend, torch_backend
+
+    params = Podr2Params(n=NODE_CHUNKS, s=NODE_SECTORS)
+    vports, rport = ports[:3], ports[3]
+    port0 = vports[0]
+
+    def call(port, method, *params_):
+        return rpc_call(NODE_HOST, port, method, list(params_), timeout=10.0)
+
+    def status(port):
+        return call(port, "sync_status")
+
+    seconds = {}
+    t_start = t0 = time.perf_counter()
+
+    def step(name):
+        nonlocal t0
+        now = time.perf_counter()
+        seconds[name] = round(now - t0, 3)
+        t0 = now
+
+    _wait_for(lambda: all(call(p, "system_name") for p in ports), 180, "every node's RPC")
+    dead = [n for n, p in procs.items() if p.poll() is not None]
+    if dead:
+        fail(f"8-node: {dead} exited")
+    step("nodes_up")
+    _wait_for(lambda: min(status(p)["number"] for p in vports) >= 2, 120,
+              "every validator past block 2")
+    step("past_block_2")
+
+    tee = TeeClient("tee-ctrl", chain_id="e2e", port=port0, timeout=60.0)
+    stash = TeeClient("tee-stash", chain_id="e2e", port=port0, timeout=60.0)
+    miner = MinerClient("miner-0", chain_id="e2e", port=port0, timeout=60.0)
+    stash.submit("staking", "bond", "tee-ctrl", 100_000 * TOKEN)
+    reg_hash = tee.register("tee-stash")
+
+    def registration_receipt(port):
+        head = status(port)["number"]
+        for n in range(head, 0, -1):
+            for r in call(port, "chain_getBlock", n)["receipts"]:
+                if r["hash"] == reg_hash:
+                    return r
+        return None
+
+    # the key lands with the registration's block; a fork that retracts
+    # that block takes it out again until the extrinsic is re-included
+    want_key = {"hex": tee.podr2_pk.hex()}
+    _wait_for(lambda: all(call(p, "teeWorker_podr2Key") == want_key for p in vports), 90,
+              "the TEE's PoDR2 key on every validator")
+    receipts = {v: _wait_for(lambda p=p: registration_receipt(p), 30,
+                             f"the TEE registration in a block on {v}")
+                for v, p in zip(NODE_VALIDATORS, vports)}
+    if not all(r["ok"] for r in receipts.values()):
+        fail(f"8-node: TEE registration receipts {receipts}")
+    step("tee_registration")
+
+    miner.register("miner-0-ben", b"peer", 8000 * TOKEN)
+    miner.create_fillers(tee, 2, params)
+    _wait_for(lambda: miner.info()["idle_space"] > 0, 90, "the filler report on chain")
+    step("fillers")
+
+    def challenged():
+        snap = miner.call("audit_challengeSnapshot")
+        return snap is not None and any(
+            s["miner"] == "miner-0" for s in snap["miner_snapshot_list"])
+
+    _wait_for(challenged, 150, "the OCW-committed challenge")
+    step("challenge")
+
+    backend = TorchBackend()
+    if backend.device.type != "cuda":
+        fail(f"8-node: TorchBackend runs on {backend.device}")
+    counters = {"K1": h2c._map_pairs_kernel, "K4": h2c._pow_c1,
+                "K2": glv.glv_fold, "K3": g1.scalar_mul_ladder}
+    torch.cuda.synchronize()
+    for f in counters.values():
+        f.launches = 0
+    items = miner.answer_challenge(backend, params)
+    if items is None:
+        fail("8-node: the miner found no challenge to answer")
+    torch.cuda.synchronize()
+    step("prove")
+    results = _wait_for(lambda: tee.verify_missions(backend, params, {"miner-0": items}),
+                        120, "the verify mission")
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    step("verify")
+    if results != {"miner-0": (True, True)}:
+        fail(f"8-node: verdicts {results}")
+    reward = _wait_for(
+        lambda: (miner.call("sminer_rewardInfo", "miner-0") or {}).get(
+            "currently_available_reward", 0), 90, "the audit reward")
+    step("reward")
+
+    def finalized_blocks():
+        """(the lowest finalized head, every validator's block there) once
+        it is >= 4 and every validator holds that block: a validator that
+        warp-synced past it holds blocks from its anchor on only."""
+        fin = min(status(p)["finalized"]["number"] for p in vports)
+        return fin >= 4 and (fin, [call(p, "sync_block", fin) for p in vports])
+
+    fin, blocks = _wait_for(finalized_blocks, 120, "a finalized head >= 4 on every validator")
+    state_hashes = {b["block"]["stateHash"] for b in blocks}
+    sigs = {b["block"]["sig"] for b in blocks}
+    if len(state_hashes) != 1 or len(sigs) != 1:
+        for v, p, b in zip(NODE_VALIDATORS, vports, blocks):
+            fams = parse_exposition(call(p, "system_metrics"))
+            say("8-node-split", node=v, status=status(p),
+                block={k: b["block"].get(k) for k in ("number", "slot", "author", "parent",
+                                                       "stateHash")},
+                justification_signers=(b["justification"] or {}).get("signers"),
+                reorgs=fams["cess_reorgs"].value(), warps=fams["cess_catchup_runs"].value())
+        fail(f"8-node: at finalized height {fin}: {len(state_hashes)} state hashes, "
+             f"{len(sigs)} block signatures (a finality split: see the 8-node-split lines)")
+    step("finality")
+
+    _wait_for(lambda: status(rport)["finalized"]["number"] >= fin, 120,
+              "the replica's finalized head")
+    lc = LightClient.from_spec(load_spec(spec_path), NODE_HOST, rport, timeout=15.0)
+    anchor = lc.sync()
+    present, account = lc.read("state", "balances.accounts", "miner-0")
+    if anchor["number"] < fin or not present or lc.justifications_verified < 1:
+        fail(f"8-node: light client anchor {anchor}, read {present} {account}")
+    step("light_read")
+    for client in (miner, tee, stash):
+        client.close()
+    forks = {}
+    for v, p in zip(NODE_VALIDATORS, vports):
+        fams = parse_exposition(call(p, "system_metrics"))
+        forks[v] = {"reorgs": fams["cess_reorgs"].value(),
+                    "warps": fams["cess_catchup_runs"].value()}
+
+    observed = {
+        "cess_proof_checks": parse_exposition(
+            torch_backend.proof_stage_registry().render())["cess_proof_checks"].value(),
+        "cess_rs_streams_total": parse_exposition(
+            rs.rs_stage_registry().render())["cess_rs_streams_total"].value(),
+    }
+    say("8-node", card=card, validators=list(NODE_VALIDATORS),
+        block_ms=NODE_BLOCK_MS, params=[NODE_CHUNKS, NODE_SECTORS],
+        step_seconds=seconds, seconds=round(time.perf_counter() - t_start, 3),
+        registration_ok={v: r["ok"] for v, r in receipts.items()}, results=results,
+        reward=reward, finalized=fin, state_hash=state_hashes.pop(), forks=forks,
+        light_anchor=anchor["number"], light_read_present=present,
+        verify_stage_seconds=backend.stage_seconds, launches_around_prove_verify=launches,
+        observed_in_this_process=observed)
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        fail(f"8-node: the prove and verify launched no {missing}")
+    if not all(v > 0 for v in observed.values()):
+        fail(f"8-node: this process observed no stage histograms: {observed}")
     return launches
 
 

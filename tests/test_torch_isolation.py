@@ -18,6 +18,8 @@ from cess_tpu_torch.chain import node
 from cess_tpu_torch.chain.runtime import Runtime
 from cess_tpu_torch.consensus import vrf
 from cess_tpu_torch.ops import _cuda, bigmod, bls_agg, g1, glv, h2c, rs, rsa
+from cess_tpu_torch.light import ReplicaService
+from cess_tpu_torch.node import NodeService, dev_spec
 from cess_tpu_torch.proof import TorchBackend, get_backend, ias
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -28,6 +30,11 @@ PKG = ROOT / "cess_tpu_torch"
 _FORBIDDEN = re.compile(
     r"^\s*(?:import|from)\s+(?:jax|jaxlib|cess_tpu)(?![\w])", re.MULTILINE
 )
+
+
+_NODE = ("__init__", "metrics", "tracing", "chain_spec", "sync", "service", "store",
+         "rpc", "client", "faults", "cli")
+_LIGHT = ("__init__", "client", "replica")
 
 
 def _all_modules() -> list[str]:
@@ -65,7 +72,8 @@ def test_sources_import_no_jax_and_no_cess_tpu():
     scanned = {f.relative_to(PKG).as_posix() for f in files if PKG in f.parents}
     host = {"native.py", "consensus/engine.py", "utils/codec.py", "utils/hashing.py",
             "utils/keccak.py", "utils/rng.py", "chain/node.py", "chain/runtime.py",
-            "chain/checkpoint.py", "chain/offences.py"}
+            "chain/checkpoint.py", "chain/offences.py", "__main__.py"}
+    host |= {f"node/{m}.py" for m in _NODE} | {f"light/{m}.py" for m in _LIGHT}
     assert host <= scanned
 
 
@@ -126,6 +134,63 @@ def test_module_walk_reaches_the_host_layers():
     utils = {f"cess_tpu_torch.utils.{m}" for m in ("codec", "hashing", "rng", "keccak")}
     assert chain | utils | {"cess_tpu_torch.native", "cess_tpu_torch.consensus.engine"} \
         <= set(_all_modules())
+
+
+def test_module_walk_reaches_the_node_light_client_and_cli():
+    node_mods = {f"cess_tpu_torch.node.{m}" for m in _NODE if m != "__init__"}
+    light_mods = {f"cess_tpu_torch.light.{m}" for m in _LIGHT if m != "__init__"}
+    assert node_mods | light_mods | {"cess_tpu_torch.node", "cess_tpu_torch.light",
+                                     "cess_tpu_torch.__main__"} <= set(_all_modules())
+
+
+def test_node_services_refuse_without_cuda(monkeypatch):
+    """A node resolves its device at construction: without a card it
+    raises there, and never reaches a TEE registration whose IAS check
+    would fail as a receipt."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (NodeService, ReplicaService):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make(dev_spec())
+    with pytest.raises(ValueError, match="unsupported device"):
+        NodeService(dev_spec(), device="meta")
+    seen = []
+    monkeypatch.setattr(ias, "verify_attestation",
+                        lambda *a, device=None: seen.append(device) or False)
+    for make in (NodeService, ReplicaService):
+        node = make(dev_spec(), device="cpu")
+        assert node.device.type == "cpu"
+        pbk = bytes(96)
+        report = b'{"podr2_pbk":"' + pbk.hex().encode() + b'"}'
+        assert not node.rt.tee_worker.cert_verifier(b"", b"", report, pbk)
+    assert [d.type for d in seen] == ["cpu", "cpu"]  # the runtime's IAS check
+
+
+def _cli(*args, env=None):
+    return subprocess.run(
+        [sys.executable, "-m", "cess_tpu_torch", *args], cwd=ROOT, capture_output=True,
+        text=True, timeout=120, env=env,
+    )
+
+
+def test_cli_run_refuses_without_cuda():
+    """`python -m cess_tpu_torch run` runs on the card unless told
+    otherwise: with no card it exits non-zero before its RPC plane is up."""
+    out = _cli("run", "--chain", "dev", "--rpc-port", "0", "--blocks", "1",
+               env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert "CUDA" in out.stderr and "rpc=" not in out.stdout
+
+
+def test_cli_export_then_import_state_on_the_cpu(tmp_path):
+    """`--device cpu` is the plain path: a checkpoint exported by one
+    process imports in another to the same state line."""
+    blob = tmp_path / "state.bin"
+    out = _cli("export-state", "--chain", "dev", "--blocks", "3", "--device", "cpu", str(blob))
+    assert out.returncode == 0, out.stderr
+    state_line = out.stdout.strip().split("state=")[1]
+    out2 = _cli("import-state", "--chain", "dev", "--device", "cpu", str(blob))
+    assert out2.returncode == 0, out2.stderr
+    assert f"block=3 state={state_line}" in out2.stdout
 
 
 def test_node_sim_refuses_without_cuda(monkeypatch):
