@@ -22,6 +22,10 @@ launches csrc/ladder.cu, on a CPU tensor it runs `batch_scalar_mul`.
 Point formulas are the complete a = 0 projective ones (Renes–Costello–
 Batina 2016, Alg. 7/9): exception-free on BLS12-381's odd-order E(Fp),
 so every kernel is straight-line, data-oblivious code.
+
+`msm_wide` is the flat Pippenger MSM (windowed buckets over raw, unreduced
+scalars): plain tensor code on either device, as the JAX package computes
+it in plain XLA, with no kernel of its own.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from . import _cuda
 from .bls12_381 import G1Point, P, R
 
@@ -369,6 +374,60 @@ def select_point(cond, a, b):
     return tuple(_select(cond, x, y) for x, y in zip(a, b))
 
 
+# ---------------------------------------------------------------- exact digits
+
+
+def _shift_up(x: torch.Tensor, fill: int = 0) -> torch.Tensor:
+    """out[i] = x[i-1], out[0] = fill (along the limb axis)."""
+    out = torch.full_like(x, fill)
+    out[1:] = x[:-1]
+    return out
+
+
+def _prefix_or_and(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Inclusive Kogge–Stone scan of carry/borrow propagation along axis
+    0: out_i = g_i | (p_i & out_{i-1}), on int32 {0, 1} tensors."""
+    n = g.shape[0]
+    d = 1
+    while d < n:
+        g2 = g.clone()
+        g2[d:] |= p[d:] & g[:-d]
+        p2 = p.clone()
+        p2[d:] &= p[:-d]
+        g, p = g2, p2
+        d *= 2
+    return g
+
+
+def exact_digits(x: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """Non-negative limbs → the EXACT base-4096 digits of the same value
+    (same length; the caller guarantees the value fits).  `passes` carry
+    sweeps bound the limbs to ≤ 4096 (3 suffice for limbs < 2^28), then
+    one Kogge–Stone scan resolves the unit carries left, which could
+    otherwise cascade the full length."""
+    x = _norm(x.clone(), passes)
+    a = (x & (BASE - 1)) + _shift_up(x >> LIMB_BITS)
+    g = (a >= BASE).to(I32)
+    p = (a == BASE - 1).to(I32)
+    return (a + _shift_up(_prefix_or_and(g, p))) & (BASE - 1)
+
+
+def limb_product_digits(a: torch.Tensor, b: torch.Tensor, out_len: int) -> torch.Tensor:
+    """Exact digits of the integer product of two exact-digit limb
+    values: a (ka, …) × b (kb, …) → (out_len, …), wide MSM scalars (such
+    as ρ·v·h_eff) formed on the device instead of in host big-ints."""
+    ka, kb = a.shape[0], b.shape[0]
+    if min(ka, kb) > 16:
+        # anti-diagonal sums of min(ka, kb) 4095² products must stay
+        # below 2^28 for exact_digits' three carry passes to be exact
+        raise ValueError("limb_product_digits: operand too wide (>16 limbs)")
+    batch = torch.broadcast_shapes(a.shape[1:], b.shape[1:])
+    acc = a.new_zeros((max(ka + kb, out_len),) + batch)
+    for i in range(ka):
+        acc[i : i + kb] += a[i : i + 1] * b
+    return exact_digits(acc, passes=3)[:out_len]
+
+
 # ---------------------------------------------------------------- ladder
 
 
@@ -551,3 +610,131 @@ def scalar_mul_batch(points, scalars, bits: int = SCALAR_BITS, device="cuda"):
     X, Y, Z, s, _ = _prepare(points, scalars, bits, device)
     rX, rY, rZ = scalar_mul_ladder((X, Y, Z), s, bits=bits)
     return projective_to_points(rX.T[:n], rY.T[:n], rZ.T[:n])
+
+
+# ---------------------------------------------------------------- flat MSM
+# Pippenger-style windowed-bucket MSM for ONE large flat sum Σ_i s_i·P_i
+# (the JAX package's msm_wide path).  The window width is the limb width,
+# so a scalar's exact base-4096 digits are its bucket indices.  Each window
+# (a) sorts the lanes by digit, (b) sums the runs of equal digits with a
+# segmented Hillis–Steele scan whose combine is the complete addition, and
+# (c) scatters the run totals into buckets.  It then needs Σ_d d·B_d.
+#
+# The JAX package keeps 4,096 dense buckets (XLA wants static shapes) and
+# takes Σ_d d·B_d by a suffix scan over all of them: 12 × 4,096 additions a
+# window whatever the lane count.  Here the run totals go to compact
+# buckets in digit order (K = the power of two ≥ min(lanes, 4,096), one
+# more column absorbs every other lane), and Σ_d d·B_d = Σ_b 2^b M_b with
+# M_b = Σ_{d: bit b of d set} B_d: twelve masked tree sums over K buckets,
+# then a 12-step Horner.  At width (K = 4,096) that is the same 12 × 4,096
+# additions a window; on a few lanes it is a few dozen.  All windows of a
+# lane chunk go through the sort, scan and tree at once.  Results are the
+# same group element as the JAX package's; the projective limbs differ
+# with the order of the additions, so callers compare affine points.
+#
+# Scalars may be WIDER than r: nothing here reduces mod r, which is what
+# the cofactor-folding contract needs (ops/h2c.py: scalars multiplied by
+# h_eff on points whose group order is h·r).
+
+# Window-lanes (windows × points) one bucket fold takes at once: the
+# scan's point additions hold ~30 KB of temporaries a lane, so 2^18 keeps a
+# chunk's peak near 8 GB on the card.
+_FLAT_CHUNK = 1 << 18
+
+
+def _window_bucket_fold(points, digits: torch.Tensor, n_buckets: int):
+    """Σ_i digit_{w,i}·P_i for every window w: points (33, N) each,
+    digits (W, N) in [0, n_buckets) → (33, W) projective window sums."""
+    W, n = digits.shape
+    order = torch.argsort(digits, dim=1, stable=True)
+    sd = torch.gather(digits, 1, order)
+    pts = tuple(c[:, order] for c in points)  # (33, W, N), sorted by digit
+    d = 1
+    while d < n:
+        same = sd[:, d:] == sd[:, :-d]
+        s = pt_add(tuple(c[..., :-d] for c in pts), tuple(c[..., d:] for c in pts))
+        pts = tuple(
+            torch.cat([c[..., :d], _select(same, a, c[..., d:])], dim=-1)
+            for c, a in zip(pts, s)
+        )
+        d *= 2
+    # a run's total sits at its last lane; digit-0 runs add nothing
+    nxt = torch.cat([sd[:, 1:], torch.full_like(sd[:, :1], -1)], dim=1)
+    is_end = (sd != nxt) & (sd != 0)
+    k = 1 << (min(n, n_buckets) - 1).bit_length()
+    idx = torch.where(is_end, torch.cumsum(is_end, dim=1) - 1, k)
+    # column k is the dump: duplicate writes land only there
+    buckets = infinity(points[0].new_zeros((L, W, k + 1)))
+    for b, c in zip(buckets, pts):
+        b.scatter_(2, idx.unsqueeze(0).expand(L, W, n), c)
+    bd = sd.new_zeros((W, k + 1)).scatter_(1, idx, sd)[:, :k]
+    bit = (bd.unsqueeze(1) >> torch.arange(LIMB_BITS, device=bd.device).view(1, -1, 1)) & 1
+    inf = infinity(points[0].new_zeros((L, 1, 1, 1)))
+    M = tree_reduce(
+        select_point(bit == 1, tuple(b[..., :k].unsqueeze(2) for b in buckets), inf), k
+    )  # (33, W, 12): M_b of every window
+    acc = tuple(m[..., LIMB_BITS - 1] for m in M)
+    for b in range(LIMB_BITS - 2, -1, -1):
+        acc = pt_add(pt_double(acc), tuple(m[..., b] for m in M))
+    return acc
+
+
+def _msm_flat_kernel(X, Y, Z, digits: torch.Tensor, n_windows: int):
+    """digits: (≥ n_windows, N) EXACT base-4096 scalar digits.  Returns
+    the MSM total as a projective (33,) limb triple.  Window sums add
+    across lane chunks; one Horner over the windows closes."""
+    n = X.shape[1]
+    if n == 0:
+        return infinity(X.new_zeros((L,)))
+    step = 1 << max(0, (_FLAT_CHUNK // n_windows).bit_length() - 1)
+    sums = None
+    for start in range(0, n, step):
+        sl = slice(start, min(start + step, n))
+        part = _window_bucket_fold((X[:, sl], Y[:, sl], Z[:, sl]), digits[:n_windows, sl], BASE)
+        sums = part if sums is None else pt_add(sums, part)
+    acc = tuple(c[:, n_windows - 1] for c in sums)
+    for j in range(n_windows - 2, -1, -1):
+        for _ in range(LIMB_BITS):
+            acc = pt_double(acc)
+        acc = pt_add(acc, tuple(c[:, j] for c in sums))
+    return acc
+
+
+def msm_flat_device(points, digits: torch.Tensor, bits: int):
+    """Flat MSM over device-resident limb points with exact-digit device
+    scalars.  points: (X, Y, Z) each (33, N); digits: (K, N) with
+    K ≥ ⌈bits/12⌉.  Returns the projective total as numpy (33,) triples."""
+    n_windows = -(-bits // LIMB_BITS)
+    if digits.shape[0] < n_windows:
+        raise ValueError("digit rows < windows for the requested bits")
+    total = _msm_flat_kernel(*points, digits, n_windows)
+    return tuple(limbs_to_numpy(t) for t in total)
+
+
+def scalars_to_digits(scalars, n_limbs: int) -> np.ndarray:
+    """Raw integer scalars (possibly ≥ r: flat-MSM semantics never
+    reduce) → (n_limbs, N) exact base-4096 digits."""
+    from .fr import ints_to_words, words_to_limbs
+
+    scalars = [int(s) for s in scalars]
+    if any(s < 0 for s in scalars):
+        raise ValueError("negative scalar")
+    if any(s >> (LIMB_BITS * n_limbs) for s in scalars):
+        raise ValueError("scalar exceeds digit width")
+    words = ints_to_words(scalars, 4 * -(-LIMB_BITS * n_limbs // 32))
+    return words_to_limbs(words, LIMB_BITS, n_limbs, np.int32).T
+
+
+def msm_wide(points, scalars, bits: int, device="cuda") -> G1Point:
+    """Host-list flat-MSM entry: Σ [s_i]P_i with raw (unreduced) integer
+    scalars up to `bits` wide — the Pippenger path, plain tensor code on
+    `device` (the card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
+    if len(points) != len(scalars):
+        raise ValueError("points/scalars length mismatch")
+    if not points:
+        return G1Point.infinity()
+    d = scalars_to_digits(scalars, -(-bits // LIMB_BITS))
+    pts = tuple(limbs_from_numpy(a.T, device) for a in points_to_projective(points))
+    rX, rY, rZ = msm_flat_device(pts, limbs_from_numpy(d, device), bits)
+    return projective_to_points(rX[None], rY[None], rZ[None])[0]

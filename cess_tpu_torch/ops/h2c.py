@@ -35,7 +35,9 @@ from .g1 import (
     L,
     LIMB_BITS,
     _dev,
+    _prefix_or_and,
     _select,
+    _shift_up,
     _st,
     addm,
     be48_to_limb_rows,
@@ -133,29 +135,6 @@ def _ensure_const_registry() -> int:
 
 
 # ------------------------------------------------- canonical predicates
-
-
-def _shift_up(x: torch.Tensor, fill: int = 0) -> torch.Tensor:
-    """out[i] = x[i-1], out[0] = fill (along the limb axis)."""
-    out = torch.full_like(x, fill)
-    out[1:] = x[:-1]
-    return out
-
-
-def _prefix_or_and(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """Inclusive Kogge–Stone scan along axis 0:
-    out_i = g_i | (p_i & out_{i-1}), on int32 {0, 1} tensors."""
-    n = g.shape[0]
-    d = 1
-    while d < n:
-        g2 = g.clone()
-        g2[d:] |= p[d:] & g[:-d]
-        p2 = p.clone()
-        p2[d:] &= p[:-d]
-        p2[:d] = p[:d]
-        g, p = g2, p2
-        d *= 2
-    return g
 
 
 def _canon_mod_p(x: torch.Tensor) -> torch.Tensor:

@@ -273,25 +273,10 @@ def combined_check_fused(
     as cess_tpu/proof/fused.py does)."""
     if not items:
         return True
-    from .torch_backend import (
-        STAGE_METRICS_ENABLED,
-        _observe_stage,
-        _stage_counters,
-        proof_stage_registry,
-    )
+    from .torch_backend import _count_check, _stage_marker
 
     device = torch.device(device)
-    metered = STAGE_METRICS_ENABLED
-
-    def mark(name, t0):
-        if not metered and stages is None:
-            return t0
-        now = _time.perf_counter()
-        if stages is not None:
-            stages[name] = stages.get(name, 0.0) + (now - t0)
-        if metered:
-            _observe_stage(name, now - t0)
-        return now
+    mark = _stage_marker(stages)
 
     check_t0 = _time.perf_counter()
     t0 = check_t0
@@ -364,11 +349,7 @@ def combined_check_fused(
         t0 = mark("u_fold", t0)
         verdict = bls.pairing_check([(lhs_pt, -bls.G2_GENERATOR), (rhs_pt, pk_point)])
         mark("pairing", t0)
-    if metered:
-        proof_stage_registry()
-        _stage_counters["checks"].inc()
-        _stage_counters["proofs"].inc(len(items))
-        _stage_counters["seconds"].inc(_time.perf_counter() - check_t0)
+    _count_check(len(items), check_t0)
     return verdict
 
 

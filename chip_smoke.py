@@ -20,9 +20,20 @@ Phases, one line each on stdout:
      hashed the chunk points (`xmd`: native or pure) and the stage split;
      3-host times the check's host steps alone (pk and σ decompression,
      encoding, transcript, one chunk's native XMD)
+  3-staged  the same batch through TorchBackend(fused=False), the JAX
+     package's staged route (the σ gate, one K3 fold per MSM, the chunk
+     points hashed on the card by K1 with K4): all True, as on the fused
+     route, with the kernels' launches counted around it (K1, K4 and K3
+     must launch; K2 has no part in it), proofs/s and the stage split;
+     the 64-proof tampered sub-batch isolates its proof
+  3-msm  g1.msm_wide, the flat Pippenger MSM (plain torch), against
+     g1.msm (K3 and the tree) on the batch's σ fold (3,072 lanes × 128
+     bits) and on BASELINE config 5's (100,000 lanes × 128 bits), against
+     the host fold on 256 lanes and with raw 224-bit scalars v·h_eff on
+     uncleared hash points: seconds, Fp products, bound and peak memory
   4  a `kernels` JSON line (printed after phase 8-node): launches on the
-     B = 3072 run, time, twin time, bound and the check error of every
-     kernel
+     B = 3072 run and on the staged run (`launches_staged`), time, twin
+     time, bound and the check error of every kernel
   5-rs  the Reed-Solomon data plane at bench.py's `bench_rs` geometry:
      RS(2,1) segments of 8 MiB fragments, 640 of them (10 GiB of
      survivors, fewer if host memory is short) reconstructed from
@@ -151,11 +162,14 @@ def main() -> None:
 
     results = phase_kernels(torch, dev)
     phase_matrix(torch, dev)
-    launches = phase_geometry(torch, dev, BATCH)
+    launches, batch = phase_geometry(torch, dev, BATCH)
+    staged_launches = phase_staged(torch, card, *batch)
+    phase_msm(torch, dev, card, *batch)
     rows = []
     for name in ("K1", "K4", "K2", "K3"):
         r = dict(results[name])
         r["launches"] = launches[name]
+        r["launches_staged"] = staged_launches[name]
         rows.append(r)
     missing = [r["name"] for r in rows if r["launches"] == 0]
     if missing:
@@ -629,9 +643,11 @@ def _counting(module, name: str, counts: dict, key: str):
         setattr(module, name, fn)
 
 
-def phase_geometry(torch, dev, batch: int) -> dict:
+def phase_geometry(torch, dev, batch: int) -> tuple:
+    """Phase 3; returns the launches on the main path and the batch
+    (pk, items, params) for phases 3-staged and 3-msm."""
     from cess_tpu_torch import native
-    from cess_tpu_torch.ops import g1, glv, h2c, podr2
+    from cess_tpu_torch.ops import h2c, podr2
     from cess_tpu_torch.ops.bls12_381 import R
     from cess_tpu_torch.ops.podr2 import Challenge, Podr2Params
     from cess_tpu_torch.proof import TorchBackend, fused
@@ -651,8 +667,7 @@ def phase_geometry(torch, dev, batch: int) -> dict:
     podr2.u_generators(params.s)  # host-side generator hashing, cached
 
     backend = TorchBackend()
-    counters = {"K1": h2c._map_pairs_kernel, "K4": h2c._pow_c1,
-                "K2": glv.glv_fold, "K3": g1.scalar_mul_ladder}
+    counters = _kernel_counters()
     for f in counters.values():
         f.launches = 0
     xmd_calls = {"native": 0, "pure": 0}
@@ -695,7 +710,7 @@ def phase_geometry(torch, dev, batch: int) -> dict:
     say("3-tampered", batch=64, false_at=[i for i, x in enumerate(v) if not x],
         seconds=round(time.perf_counter() - t0, 3))
     phase_host_split(items, params)
-    return launches
+    return launches, (pk, items, params)
 
 
 def phase_host_split(items, params) -> None:
@@ -732,6 +747,151 @@ def phase_host_split(items, params) -> None:
     fused._xmd_u([n for n, _, _ in chunk], ids, idx)
     secs["xmd_native_one_chunk"] = time.perf_counter() - t0
     say("3-host", batch=len(items), pairs_a_chunk=len(ids), seconds=secs)
+
+
+# ------------------------------------------------------------ phase 3-staged
+
+
+def _kernel_counters():
+    from cess_tpu_torch.ops import g1, glv, h2c
+
+    return {"K1": h2c._map_pairs_kernel, "K4": h2c._pow_c1,
+            "K2": glv.glv_fold, "K3": g1.scalar_mul_ladder}
+
+
+def phase_staged(torch, card: str, pk, items, params) -> dict:
+    """3-staged: phase 3's batch through TorchBackend(fused=False) — the
+    σ gate, one K3 fold per MSM, the chunk points hashed on the card (K1
+    with K4) — all True as on the fused route, with the kernels' launches
+    counted around it (K2 has no part in this route: 0 expected); then
+    the 64-proof sub-batch with one tampered μ.  Returns the launches."""
+    from cess_tpu_torch.ops import podr2
+    from cess_tpu_torch.proof import TorchBackend
+
+    batch = len(items)
+    backend = TorchBackend(fused=False)
+    counters = _kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    verdicts = backend.verify_batch(pk, items, b"bench-seed", params)
+    torch.cuda.synchronize()
+    verify_s = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    stages = dict(backend.stage_seconds)
+    if verdicts != [True] * batch:
+        fail(f"3-staged: {verdicts.count(False)} of {batch} proofs rejected (fused: all True)")
+    missing = [k for k in ("K1", "K4", "K3") if launches[k] == 0]
+    if missing:
+        fail(f"3-staged: the staged route launched no {missing}")
+
+    sub = list(items[:64])
+    nm, c, p = sub[17]
+    sub[17] = (nm, c, podr2.Podr2Proof(p.sigma, [1] + p.mu[1:]))
+    t0 = time.perf_counter()
+    v = backend.verify_batch(pk, sub, b"bench-seed-2", params)
+    tampered_s = time.perf_counter() - t0
+    if [i for i, x in enumerate(v) if not x] != [17]:
+        fail(f"3-staged: tampered sub-batch verdicts {v}")
+    say("3-staged", card=card, batch=batch, verify_seconds=verify_s,
+        proofs_per_s=batch / verify_s, all_true=True, equal_to_fused=True,
+        stage_seconds=stages,
+        launches=launches, k2_expected=0, tampered_false_at=[17],
+        tampered_seconds=tampered_s)
+    return launches
+
+
+# ------------------------------------------------------------ phase 3-msm
+
+# BASELINE config 5's σ fold: 100,000 proofs, ρ of 128 bits
+# (cess_tpu/parallel/epoch_sim.py:172).
+MSM_CONFIG5 = 100_000
+
+
+def _msm_timed(torch, fn):
+    """fn() on the card: (result, seconds, (Fp products, squarings) the
+    plain tensor code computed)."""
+    from cess_tpu_torch.ops import g1
+
+    torch.cuda.synchronize()
+    c0, q0 = g1.MUL_COUNT[0], g1.SQR_COUNT[0]
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, (g1.MUL_COUNT[0] - c0, g1.SQR_COUNT[0] - q0)
+
+
+def phase_msm(torch, dev, card: str, pk, items, params) -> None:
+    """3-msm: g1.msm_wide (the flat Pippenger MSM, plain torch) on the
+    card against g1.msm (K3 plus the tree) on phase 3's σ fold (3,072
+    lanes × 128 bits) and on config 5's (100,000 lanes × 128 bits), then
+    against host folds on 256 lanes and with raw 224-bit scalars v·h_eff
+    on uncleared hash points.  Any difference fails the phase."""
+    import numpy as np
+
+    from cess_tpu_torch.ops import bls12_381 as bls
+    from cess_tpu_torch.ops import g1, h2c, podr2
+    from cess_tpu_torch.proof import frontend
+
+    out = {}
+    sigmas = frontend.decompress_sigmas(items)
+    encs = frontend.encode_proofs(items)
+    rhos = podr2.batch_rho(podr2.batch_transcript(
+        b"bench-seed", [podr2.BatchItem(n, c, p) for n, c, p in items], encodings=encs), len(items))
+
+    def against_msm(tag, pts, scalars):
+        g1.msm_wide(pts[:64], scalars[:64], bits=128, device=dev)  # warm
+        torch.cuda.reset_peak_memory_stats()
+        got, wide_s, work = _msm_timed(torch, lambda: g1.msm_wide(pts, scalars, bits=128, device=dev))
+        peak = torch.cuda.max_memory_allocated()
+        want, msm_s, _ = _msm_timed(torch, lambda: g1.msm(pts, scalars, bits=128, device=dev))
+        out[tag] = {"lanes": len(pts), "bits": 128, "equal": got == want, "msm_wide_s": wide_s,
+                    "k3_msm_s": msm_s, "fp_products": work[0], "fp_squarings": work[1],
+                    "bound_ms": _ops_ms(work), "peak_gib": peak / 2**30}
+        if got != want:
+            fail(f"3-msm: msm_wide differs from msm at {tag}")
+
+    against_msm("sigma_fold_3072", sigmas, rhos)
+
+    # config 5: 100,000 subgroup points [k]G crafted by one K3 launch
+    rng = np.random.default_rng(5)
+    ks = [int.from_bytes(rng.bytes(32), "little") % bls.R for _ in range(MSM_CONFIG5)]
+    gX, gY, gZ = (torch.as_tensor(a, device=dev).expand(-1, MSM_CONFIG5).contiguous()
+                  for a in _points_to_dev(torch, [bls.G1_GENERATOR], "cpu"))
+    s = torch.as_tensor(g1.scalars_to_limbs(ks).T.copy(), device=dev)
+    t0 = time.perf_counter()
+    pts = g1.projective_to_points(*(a.T for a in g1.scalar_mul_ladder((gX, gY, gZ), s)))
+    craft_s = time.perf_counter() - t0
+    against_msm("config5_100000", pts, [int.from_bytes(rng.bytes(16), "little") for _ in pts])
+    out["config5_100000"]["craft_s"] = craft_s
+
+    # 256 lanes against the host fold Σ [ρ_i]σ_i
+    want = bls.G1Point.infinity()
+    for p, r in zip(sigmas[:256], rhos[:256]):
+        want = want + p.mul(r)
+    got, secs, _ = _msm_timed(torch, lambda: g1.msm_wide(sigmas[:256], rhos[:256], bits=128, device=dev))
+    out["host_256"] = {"equal": got == want, "msm_wide_s": secs}
+    if got != want:
+        fail("3-msm: msm_wide differs from the host fold on 256 lanes")
+
+    # raw 224-bit v·h_eff on uncleared hash points, as the staged H fold
+    name, ch, _ = items[0]
+    names = [nm for nm, _, _ in items[:6]]
+    ids = np.repeat(np.arange(6, dtype=np.uint32), len(ch.indices))
+    idx = np.tile(np.asarray(ch.indices, dtype=np.uint64), 6)
+    (X, Y, Z), n = h2c.hash_pairs_device(names, ids, idx, podr2.H_DST, device=dev)
+    unclear = g1.projective_to_points(X.T[:n], Y.T[:n], Z.T[:n])
+    scal = [v * h2c.H_EFF for v in ch.coefficients()] * 6
+    want = bls.G1Point.infinity()
+    for p, v in zip(unclear, scal):
+        want = want + p._mul_raw(v)
+    got, secs, _ = _msm_timed(torch, lambda: g1.msm_wide(unclear, scal, bits=224, device=dev))
+    out["raw_224_uncleared"] = {"lanes": n, "in_subgroup": sum(p.in_subgroup() for p in unclear[:8]),
+                                "equal": got == want, "msm_wide_s": secs}
+    if got != want:
+        fail("3-msm: msm_wide differs from the host fold on raw 224-bit scalars")
+    say("3-msm", card=card, checks=out, flat_chunk_window_lanes=g1._FLAT_CHUNK)
 
 
 # ------------------------------------------------------------ phase 5-rs

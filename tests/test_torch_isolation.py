@@ -106,6 +106,18 @@ def test_torch_backend_refuses_without_cuda(monkeypatch):
     assert TorchBackend(device="cpu").device.type == "cpu"
 
 
+@pytest.mark.parametrize("call", [
+    lambda: TorchBackend(fused=False, device_h2c=False),
+    lambda: g1.msm_wide([g1.G1Point.infinity()], [1], bits=128),
+], ids=["staged_backend", "msm_wide"])
+def test_staged_route_and_flat_msm_refuse_without_cuda(monkeypatch, call):
+    """Neither the staged verify route nor the flat MSM falls back to the
+    host ladder, host hashing or the plain tensor path without a card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+
+
 def test_rs_codes_refuse_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
