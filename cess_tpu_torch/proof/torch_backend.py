@@ -3,14 +3,15 @@
 Verification runs inside the shared bisection of proof/backend.py, so
 verdict bitmaps equal CpuBackend's, by one of two routes:
 
- * fused (`fused=None`, the default on both devices): the per-chunk
+ * fused (`fused=True`, the default on both devices): the per-chunk
    pipeline of proof/fused.py, kernels K1–K4 on CUDA tensors;
  * staged (`fused=False`): the JAX package's XlaBackend route off a TPU —
    the σ subgroup gate (one K3 [r]-chain), the Fr limb contraction of μ,
    and one K3 ladder fold per MSM (σ^ρ, the per-item H fold, its ρ fold,
-   the u fold), each stage ending in host values.  At batch scale the
-   chunk points are hashed on the device (K1 with K4) and stay there for
-   the H fold, with h_eff folded into the coefficients.
+   the u fold), each stage ending in host values.  On the card, at batch
+   scale, the chunk points are hashed on the device (K1 with K4) and stay
+   there for the H fold, with h_eff folded into the coefficients; on the
+   CPU they are hashed on the host.
 
 Proving aggregates μ with the Fr limb contraction (ops/fr.py) and σ with
 one grouped ladder (K3) per chunk of fragments.
@@ -51,7 +52,7 @@ _RHO_BITS = 128
 _COEFF_HEFF_BITS = _COEFF_BITS + 64
 
 # Below this many (proof, chunk) pairs the staged route hashes the chunk
-# points on the host (native hash_to_g1) even where device hashing is on.
+# points on the host (native hash_to_g1) even on the card.
 _DEVICE_H2C_MIN_PAIRS = 256
 
 
@@ -165,16 +166,10 @@ def _subgroup_ok(points: list[G1Point], device: torch.device) -> bool:
 class TorchBackend(ProofBackend):
     name = "torch"
 
-    def __init__(self, device=None, fused: bool | None = None,
-                 device_h2c: bool | None = None) -> None:
+    def __init__(self, device=None, fused: bool = True) -> None:
         self.device = resolve_device(device)
-        # fused=False takes the staged route; None (or True) the fused one
+        # fused=False takes the staged route
         self.fused = fused
-        # device_h2c: hash the chunk points on the device in the staged
-        # route (from _DEVICE_H2C_MIN_PAIRS pairs); None = on the card only
-        self.device_h2c = (
-            self.device.type == "cuda" if device_h2c is None else device_h2c
-        )
         # wall seconds per stage, accumulated over every check
         self.stage_seconds: dict[str, float] = {}
         # H points of one verify_batch call: the bisection revisits the
@@ -239,7 +234,7 @@ class TorchBackend(ProofBackend):
         """
         if not items:
             return True
-        if self.fused is not False:
+        if self.fused:
             return combined_check_fused(
                 pk, items, seed, params, stages=self.stage_seconds,
                 device=self.device,
@@ -286,7 +281,7 @@ class TorchBackend(ProofBackend):
 
         # H side: per-item Π_c H^{v_c}, then the ρ fold across items
         n_pairs = sum(len(ch.indices) for _, ch, _ in items)
-        if self.device_h2c and n_pairs >= _DEVICE_H2C_MIN_PAIRS:
+        if dev.type == "cuda" and n_pairs >= _DEVICE_H2C_MIN_PAIRS:
             inner = self._h_inner_fold_device(items)
         else:
             counts = [min(len(ch.indices), len(ch.randoms)) for _, ch, _ in items]

@@ -23,14 +23,19 @@ Phases, one line each on stdout:
   3-staged  the same batch through TorchBackend(fused=False), the JAX
      package's staged route (the σ gate, one K3 fold per MSM, the chunk
      points hashed on the card by K1 with K4): all True, as on the fused
-     route, with the kernels' launches counted around it (K1, K4 and K3
-     must launch; K2 has no part in it), proofs/s and the stage split;
-     the 64-proof tampered sub-batch isolates its proof
+     route, with the kernels' launches counted around it (exactly one
+     combined check: K1 1, K4 1, K2 0, K3 5), proofs/s and the stage
+     split; the combined check called alone holds the batch and refuses
+     the 64-proof tampered sub-batch, whose bisection isolates its proof;
+     the device H fold at the batch's launch shapes (K1 on 144,384
+     pairs, K3's wide ladder on 196,608 lanes × 224 bits) equals the host
+     fold Π_c H(name‖i_c)^{v_c} on every 12th item
   3-msm  g1.msm_wide, the flat Pippenger MSM (plain torch), against
      g1.msm (K3 and the tree) on the batch's σ fold (3,072 lanes × 128
      bits) and on BASELINE config 5's (100,000 lanes × 128 bits), against
      the host fold on 256 lanes and with raw 224-bit scalars v·h_eff on
-     uncleared hash points: seconds, Fp products, bound and peak memory
+     uncleared hash points: seconds, the Fp products the plain code
+     computed, the bound of the bucket method and peak memory
   4  a `kernels` JSON line (printed after phase 8-node): launches on the
      B = 3072 run and on the staged run (`launches_staged`), time, twin
      time, bound and the check error of every kernel
@@ -759,12 +764,36 @@ def _kernel_counters():
             "K2": glv.glv_fold, "K3": g1.scalar_mul_ladder}
 
 
+# The staged route's launches on one combined check that passes: the σ
+# gate, the σ fold, the H fold, its ρ fold and the u fold on K3; the H
+# fold's hashing on K1 (with K4).  Any bisection would launch more.
+STAGED_LAUNCHES = {"K1": 1, "K4": 1, "K2": 0, "K3": 5}
+# Items of the batch whose device H fold is held to the host fold.
+H_FOLD_STRIDE = 12
+
+
+def _host_h_fold(lanes):
+    """Σ_c [v_c]H_c on the host for one item: lanes [(x, y, v)] of
+    cleared chunk points → (x, y)."""
+    from cess_tpu_torch.ops import bls12_381 as bls
+
+    acc = bls.G1Point.infinity()
+    for x, y, v in lanes:
+        acc = acc + bls.G1Point(x, y).mul(v)
+    return acc.x, acc.y
+
+
 def phase_staged(torch, card: str, pk, items, params) -> dict:
     """3-staged: phase 3's batch through TorchBackend(fused=False) — the
     σ gate, one K3 fold per MSM, the chunk points hashed on the card (K1
-    with K4) — all True as on the fused route, with the kernels' launches
-    counted around it (K2 has no part in this route: 0 expected); then
-    the 64-proof sub-batch with one tampered μ.  Returns the launches."""
+    with K4) — all True as on the fused route, in exactly one combined
+    check (STAGED_LAUNCHES); the combined check alone, True on the batch
+    and False on the 64-proof sub-batch with one tampered μ, whose
+    bisection isolates that proof; then the device H fold held to the
+    host fold.  Returns the launches."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
     from cess_tpu_torch.ops import podr2
     from cess_tpu_torch.proof import TorchBackend
 
@@ -782,23 +811,50 @@ def phase_staged(torch, card: str, pk, items, params) -> dict:
     stages = dict(backend.stage_seconds)
     if verdicts != [True] * batch:
         fail(f"3-staged: {verdicts.count(False)} of {batch} proofs rejected (fused: all True)")
-    missing = [k for k in ("K1", "K4", "K3") if launches[k] == 0]
-    if missing:
-        fail(f"3-staged: the staged route launched no {missing}")
+    if launches != STAGED_LAUNCHES:
+        fail(f"3-staged: launches {launches}, one passing combined check gives {STAGED_LAUNCHES}")
 
+    if backend._combined_check(pk, items, b"bench-seed", params) is not True:
+        fail("3-staged: the combined check refused the honest batch")
     sub = list(items[:64])
     nm, c, p = sub[17]
     sub[17] = (nm, c, podr2.Podr2Proof(p.sigma, [1] + p.mu[1:]))
+    if backend._combined_check(pk, sub, b"bench-seed-2", params) is not False:
+        fail("3-staged: the combined check passed the tampered sub-batch")
     t0 = time.perf_counter()
     v = backend.verify_batch(pk, sub, b"bench-seed-2", params)
     tampered_s = time.perf_counter() - t0
     if [i for i, x in enumerate(v) if not x] != [17]:
         fail(f"3-staged: tampered sub-batch verdicts {v}")
+
+    # the device H fold at the batch's launch shapes, against the host
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = backend._h_inner_fold_device(items)
+    fold_s = time.perf_counter() - t0
+    held = list(range(0, batch, H_FOLD_STRIDE))
+    ch = items[0][1]
+    if any(c is not ch for _, c, _ in items):
+        fail("3-staged: the batch's items do not share one challenge")
+    pts = podr2.chunk_points_batch([(items[b][0], i) for b in held for i in ch.indices])
+    coeffs = ch.coefficients()
+    k = len(ch.indices)
+    jobs = [[(q.x, q.y, v) for q, v in zip(pts[j * k:(j + 1) * k], coeffs)] for j in range(len(held))]
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(8, mp_context=multiprocessing.get_context("spawn")) as pool:
+        want = list(pool.map(_host_h_fold, jobs, chunksize=8))
+    host_s = time.perf_counter() - t0
+    bad = [b for b, w in zip(held, want) if (got[b].x, got[b].y) != w]
+    if bad:
+        fail(f"3-staged: the device H fold differs from the host fold at items {bad[:8]}")
     say("3-staged", card=card, batch=batch, verify_seconds=verify_s,
         proofs_per_s=batch / verify_s, all_true=True, equal_to_fused=True,
         stage_seconds=stages,
-        launches=launches, k2_expected=0, tampered_false_at=[17],
-        tampered_seconds=tampered_s)
+        launches=launches, k2_expected=0, combined_check={"batch": True, "tampered": False},
+        tampered_false_at=[17], tampered_seconds=tampered_s,
+        h_fold={"items": batch, "pairs": batch * k, "lanes": batch * (1 << (k - 1).bit_length()),
+                "bits": 224, "seconds": fold_s, "held_items": len(held),
+                "host_seconds": host_s, "equal": True})
     return launches
 
 
@@ -820,6 +876,24 @@ def _msm_timed(torch, fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0, (g1.MUL_COUNT[0] - c0, g1.SQR_COUNT[0] - q0)
+
+
+def _bucket_work(scalars, bits: int) -> tuple[int, int]:
+    """(Fp products, of which squarings) the bucket method needs for
+    Σ [s_i]P_i on these scalars, in 12-bit windows: one addition a
+    nonzero digit into its bucket, 2 · 4,096 a window for the running
+    sums Σ_d d·B_d, then 12 doublings and one addition a window to join
+    the windows; 12 products a complete addition, 8 (2 of them
+    squarings) a doubling."""
+    import numpy as np
+
+    from cess_tpu_torch.ops import g1
+
+    windows = -(-bits // g1.LIMB_BITS)
+    nonzero = int(np.count_nonzero(g1.scalars_to_digits(scalars, windows)))
+    adds = nonzero + 2 * g1.BASE * windows + windows - 1
+    dbls = g1.LIMB_BITS * (windows - 1)
+    return 12 * adds + 8 * dbls, 2 * dbls
 
 
 def phase_msm(torch, dev, card: str, pk, items, params) -> None:
@@ -846,9 +920,11 @@ def phase_msm(torch, dev, card: str, pk, items, params) -> None:
         got, wide_s, work = _msm_timed(torch, lambda: g1.msm_wide(pts, scalars, bits=128, device=dev))
         peak = torch.cuda.max_memory_allocated()
         want, msm_s, _ = _msm_timed(torch, lambda: g1.msm(pts, scalars, bits=128, device=dev))
+        need = _bucket_work(scalars, 128)
         out[tag] = {"lanes": len(pts), "bits": 128, "equal": got == want, "msm_wide_s": wide_s,
-                    "k3_msm_s": msm_s, "fp_products": work[0], "fp_squarings": work[1],
-                    "bound_ms": _ops_ms(work), "peak_gib": peak / 2**30}
+                    "k3_msm_s": msm_s, "code_fp_products": work[0], "code_fp_squarings": work[1],
+                    "bound_fp_products": need[0], "bound_fp_squarings": need[1],
+                    "bound_ms": _ops_ms(need), "peak_gib": peak / 2**30}
         if got != want:
             fail(f"3-msm: msm_wide differs from msm at {tag}")
 

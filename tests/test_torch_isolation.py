@@ -107,7 +107,7 @@ def test_torch_backend_refuses_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("call", [
-    lambda: TorchBackend(fused=False, device_h2c=False),
+    lambda: TorchBackend(fused=False),
     lambda: g1.msm_wide([g1.G1Point.infinity()], [1], bits=128),
 ], ids=["staged_backend", "msm_wide"])
 def test_staged_route_and_flat_msm_refuse_without_cuda(monkeypatch, call):

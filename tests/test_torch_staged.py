@@ -150,7 +150,7 @@ def test_off_subgroup_sigma_gives_false(items):
 
 def test_empty_batch_and_early_rejections_mark_nothing(items):
     backend = get_backend("torch", device="cpu", fused=False)
-    assert backend.fused is False and backend.device_h2c is False
+    assert backend.fused is False
     assert backend.verify_batch(PK, [], b"s", PARAMS) == []
     before = proof_counts()
     wide = [(n, c, podr2.Podr2Proof(p.sigma, [R] + list(p.mu[1:]))) for n, c, p in to_port(items)]
@@ -164,7 +164,7 @@ def test_device_h_fold_equals_the_host_fold(items):
     """_h_inner_fold_device on the CPU twins (K1 with K4, then K3 at
     v·h_eff scalars on uncleared points) against Π_c H(name‖i_c)^{v_c}
     from cess_tpu's chunk_point."""
-    backend = TorchBackend(device="cpu", fused=False, device_h2c=True)
+    backend = TorchBackend(device="cpu", fused=False)
     got = backend._h_inner_fold_device(to_port(items))
     for (name, ch, _), pt in zip(items, got):
         want = jbls.G1Point.infinity()
