@@ -28,9 +28,11 @@ pins each proof individually (soundness argument: ops/bls_agg.py).
 
 A copy of `cess_tpu/consensus/vrf.py` bound to the port.  `batch_verify`
 and `verify_claims` take a torch device (None = the card, "cpu" = the
-plain tensor twins) and no mesh; the JAX package's host-fold choice
-(`device=False`, or no TPU) is not here: the pure-Python folds are
-`bls_agg.verify_batch_host`, reached only by name.
+plain tensor twins) and an optional `mesh` (parallel/verify.py Mesh),
+passed through to bls_agg, which shards the proof-side fold over it.
+The JAX package's host-fold choice (`device=False`, or no TPU) is not
+here: the pure-Python folds are `bls_agg.verify_batch_host`, reached
+only by name.
 """
 
 from __future__ import annotations
@@ -118,20 +120,25 @@ def _check_outputs(claims: list[Claim]) -> list[bool]:
     return [proof_to_output(proof) == out for _, _, out, proof in claims]
 
 
-def batch_verify(claims: list[Claim], seed: bytes = b"", device=None) -> bool:
+def batch_verify(
+    claims: list[Claim], seed: bytes = b"", device=None, mesh=None
+) -> bool:
     """True iff EVERY claim verifies, with all the pairings folded into
     one weighted product: host output re-derivations (cheap hashes),
     then a single batched pairing call over the proofs, its G1 folds on
-    `device` (None = the card; without one this raises).  The same
+    `device` (None = the card; without one this raises), the proof-side
+    fold sharded over `mesh` when one is given.  The same
     Fiat–Shamir-weighted equation as the host fold, bit-identical
     verdicts."""
     device = resolve_device(device)
+    if mesh is not None:
+        mesh.require_type(device)
     if not claims:
         return True
     if not all(_check_outputs(claims)):
         return False
     triples = [(pk, msg, proof) for pk, msg, _, proof in claims]
-    return bls_agg.batch_verify_signatures(triples, seed, device)
+    return bls_agg.batch_verify_signatures(triples, seed, device, mesh=mesh)
 
 
 def batch_claim_triples(
@@ -160,26 +167,29 @@ def batch_claim_triples(
 
 
 def verify_claims(
-    claims: list[Claim], seed: bytes = b"", device=None
+    claims: list[Claim], seed: bytes = b"", device=None, mesh=None
 ) -> list[bool]:
     """Per-claim verdicts: output mismatches are isolated host-side for
     free; the surviving claims take the one-batch fast path, with
     bisection only when a batch fails (the ProofBackend contract shape,
-    ops/bls_agg.verify_signatures).  device: None = the card."""
+    ops/bls_agg.verify_signatures).  device: None = the card; mesh: as
+    `batch_verify`."""
     device = resolve_device(device)
+    if mesh is not None:
+        mesh.require_type(device)
     ok = _check_outputs(claims)
     live = [c for c, good in zip(claims, ok) if good]
     if not live:
         return ok
-    if batch_verify(live, seed, device):
+    if batch_verify(live, seed, device, mesh):
         return ok
     if len(live) == 1:
         verdicts = [False]
     else:
         mid = len(live) // 2
         verdicts = (
-            verify_claims(live[:mid], seed, device)
-            + verify_claims(live[mid:], seed, device)
+            verify_claims(live[:mid], seed, device, mesh)
+            + verify_claims(live[mid:], seed, device, mesh)
         )
     it = iter(verdicts)
     return [next(it) if good else False for good in ok]

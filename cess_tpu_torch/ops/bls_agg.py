@@ -34,8 +34,10 @@ bisection when a batch fails, mirroring the ProofBackend contract
 
 A copy of `cess_tpu/ops/bls_agg.py` bound to the port: the device entry
 points take a torch device (None = the card, "cpu" = the plain tensor
-twins) instead of a mesh — sharding comes with the port's
-torch.distributed slice.  `verify_batch_host` keeps the pure-Python
+twins) and, as the JAX package's do, an optional `mesh`
+(parallel/verify.py Mesh, of the device's type) that shards the
+signature-side fold over its ranks (parallel.msm_sharded); the message
+folds stay on the device.  `verify_batch_host` keeps the pure-Python
 folds and is reached only by name: a missing card never selects it.
 """
 
@@ -91,13 +93,20 @@ def _hash_points(msgs: list[bytes]) -> list[G1Point]:
     return [memo[m] for m in msgs]
 
 
-def _batch_folds(sig_pts, rhos, groups, device):
+def _batch_folds(sig_pts, rhos, groups, device, mesh=None):
     """The two G1 folds of the weighted equation: Π sig_i^{r_i} and, per
     key, Π H(m_i)^{r_i}.  device: a torch device (one K3 launch each,
-    through g1.msm and g1.msm_grouped), or None for the pure-Python host
-    ladders.  Returns (signature fold, [fold per key in `groups` order])."""
+    through g1.msm and g1.msm_grouped; with a mesh the signature fold is
+    parallel.msm_sharded over its ranks instead), or None for the
+    pure-Python host ladders.  Returns (signature fold, [fold per key in
+    `groups` order])."""
     if device is not None:
-        lhs = g1.msm(sig_pts, rhos, bits=_RHO_BITS, device=device)
+        if mesh is not None:
+            from ..parallel.msm import msm_sharded
+
+            lhs = msm_sharded(mesh, sig_pts, rhos, bits=_RHO_BITS)
+        else:
+            lhs = g1.msm(sig_pts, rhos, bits=_RHO_BITS, device=device)
         folds = g1.msm_grouped(
             [pts for pts, _ in groups.values()],
             [rs for _, rs in groups.values()],
@@ -118,7 +127,8 @@ def _batch_folds(sig_pts, rhos, groups, device):
 
 
 def _weighted_batch_check(
-    triples: list[SigTriple], seed: bytes, device, stages: dict | None = None
+    triples: list[SigTriple], seed: bytes, device, stages: dict | None = None,
+    mesh=None,
 ) -> bool:
     """THE weighted batch equation, shared by the device and host entry
     points: parse, Fiat–Shamir weights, per-key grouping and the pairs
@@ -127,8 +137,8 @@ def _weighted_batch_check(
     accept identical batches), so the two backends may only differ in
     HOW the two G1 folds are computed, never in what is folded.
 
-    device: a torch device for the folds, or None for the host ladders.
-    stages, when given, accumulates wall seconds under "parse", "hash",
+    device: a torch device for the folds, or None for the host ladders;
+    mesh: shards the signature fold (device folds only).  stages, when given, accumulates wall seconds under "parse", "hash",
     "folds" and "pairing"."""
     if not triples:
         return True
@@ -166,7 +176,7 @@ def _weighted_batch_check(
         rs.append(r)
     lap("hash")
 
-    lhs, folds = _batch_folds(sig_pts, rhos, groups, device)
+    lhs, folds = _batch_folds(sig_pts, rhos, groups, device, mesh)
     lap("folds")
 
     pairs = [(lhs, -bls.G2_GENERATOR)]
@@ -178,32 +188,39 @@ def _weighted_batch_check(
 
 def batch_verify_signatures(
     triples: list[SigTriple], seed: bytes = b"", device=None,
-    stages: dict | None = None,
+    stages: dict | None = None, mesh=None,
 ) -> bool:
     """One combined pairing check for the whole batch.  False if ANY
     signature is invalid (or any pk/sig fails to parse).  device: None =
     the card (both folds through kernel K3), "cpu" = the plain tensor
-    twins; without a card the default raises.  stages: see
-    `_weighted_batch_check`."""
-    return _weighted_batch_check(triples, seed, resolve_device(device), stages)
+    twins; without a card the default raises.  mesh: optional Mesh of the
+    device's type; the signature-side fold is sharded over it.  stages:
+    see `_weighted_batch_check`."""
+    device = resolve_device(device)
+    if mesh is not None:
+        mesh.require_type(device)
+    return _weighted_batch_check(triples, seed, device, stages, mesh)
 
 
 def verify_signatures(
-    triples: list[SigTriple], seed: bytes = b"", device=None
+    triples: list[SigTriple], seed: bytes = b"", device=None, mesh=None
 ) -> list[bool]:
     """Per-signature verdicts: one combined check on the all-honest path,
-    bisection to isolate the invalid signatures otherwise."""
+    bisection to isolate the invalid signatures otherwise (every check on
+    the mesh when one is given)."""
     device = resolve_device(device)
+    if mesh is not None:
+        mesh.require_type(device)
     if not triples:
         return []
-    if batch_verify_signatures(triples, seed, device):
+    if batch_verify_signatures(triples, seed, device, mesh=mesh):
         return [True] * len(triples)
     if len(triples) == 1:
         return [False]
     mid = len(triples) // 2
-    return verify_signatures(triples[:mid], seed, device) + verify_signatures(
-        triples[mid:], seed, device
-    )
+    return verify_signatures(
+        triples[:mid], seed, device, mesh
+    ) + verify_signatures(triples[mid:], seed, device, mesh)
 
 
 def verify_batch_host(triples: list[SigTriple], seed: bytes = b"") -> bool:

@@ -21,11 +21,19 @@ host gathers piece t+1 into a reused pinned staging buffer while piece
 t's host-to-device copy, product and device-to-host copy run on three
 CUDA streams, and CUDA events guard every reuse of a staging buffer.
 
-Left out against `cess_tpu`: the `mesh=` arguments (sharding is a later
-slice), the XLA trace counters, the stage histograms (each stream still
-fills its per-call `stages` dict), and the padding that bounded XLA
-compiles (pow2 width buckets, padded tail tiles and slabs): eager torch
-compiles nothing, and the bytes are the same without it.
+`mesh=` (parallel/verify.py Mesh, of the code's device type) shards a
+product over the mesh's ranks as `cess_tpu` does: the byte axis for
+`encode`, `reconstruct` and `RSStream.run`, the segment axis for the
+batch calls and `RSStream.run_batch`.  The axis is zero-padded to a
+multiple of the mesh size, each rank computes its block on its device,
+and the blocks are concatenated on the code's device; there is no
+reduction, and the bytes equal the unmeshed product's.
+
+Left out against `cess_tpu`: the XLA trace counters, the stage
+histograms (each stream still fills its per-call `stages` dict), and the
+padding that bounded XLA compiles (pow2 width buckets, padded tail tiles
+and slabs): eager torch compiles nothing, and the bytes are the same
+without it.
 """
 
 from __future__ import annotations
@@ -333,14 +341,15 @@ class RSCode:
 
     # -- products -------------------------------------------------------
 
-    def _mat_dev(self, mat_host: np.ndarray) -> torch.Tensor:
+    def _mat_dev(self, mat_host: np.ndarray, device=None) -> torch.Tensor:
         """Device operand of a host GF(256) matrix for this code's path
-        (cached per device and matrix)."""
+        on `device` (default: the code's; cached per device and matrix)."""
         raw = np.ascontiguousarray(mat_host, dtype=np.uint8)
         r, c = raw.shape
+        dev = self.device if device is None else device
         if self.path == "bitplane":
-            return _bits_dev(raw.tobytes(), r, c, self.device)
-        return _lut_dev(raw.tobytes(), r, c, self.device)
+            return _bits_dev(raw.tobytes(), r, c, dev)
+        return _lut_dev(raw.tobytes(), r, c, dev)
 
     def _product(self, op: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
         """(b, k, n) uint8 on the device -> (b, rows of op, n) uint8."""
@@ -348,31 +357,53 @@ class RSCode:
             return _matmul_gf_bitplane(op, data)
         return _matmul_gf_gather(op, data)
 
+    def _sharded_product(self, mat_host: np.ndarray, x: torch.Tensor, mesh,
+                         axis: int) -> torch.Tensor:
+        """mat @ x for (b, k, w) uint8 on the code's device; with a mesh,
+        `axis` (0: segments, 2: bytes) is zero-padded to a multiple of the
+        mesh size, each rank's contiguous block is computed on its device
+        and the blocks are concatenated back on x's device."""
+        if mesh is None:
+            return self._product(self._mat_dev(mat_host), x)
+        mesh.require_type(self.device)
+        size = x.shape[axis]
+        pad = -size % mesh.size
+        if pad:
+            shape = list(x.shape)
+            shape[axis] = pad
+            x = torch.cat([x, x.new_zeros(shape)], dim=axis)
+        outs = [
+            self._product(self._mat_dev(mat_host, dev), block.to(dev)).to(x.device)
+            for dev, block in zip(mesh.devices, x.chunk(mesh.size, dim=axis))
+        ]
+        return torch.cat(outs, dim=axis).narrow(axis, 0, size)
+
     def _to_device(self, data) -> torch.Tensor:
         if isinstance(data, torch.Tensor):
             return data.to(self.device, torch.uint8)
         return torch.as_tensor(np.asarray(data, dtype=np.uint8), device=self.device)
 
-    def _apply(self, mat_host: np.ndarray, data) -> torch.Tensor:
+    def _apply(self, mat_host: np.ndarray, data, mesh=None) -> torch.Tensor:
         x = self._to_device(data).unsqueeze(0)
-        return self._product(self._mat_dev(mat_host), x)[0]
+        return self._sharded_product(mat_host, x, mesh, axis=2)[0]
 
-    def _apply_batch(self, mat_host: np.ndarray, data) -> torch.Tensor:
-        return self._product(self._mat_dev(mat_host), self._to_device(data))
+    def _apply_batch(self, mat_host: np.ndarray, data, mesh=None) -> torch.Tensor:
+        return self._sharded_product(mat_host, self._to_device(data), mesh, axis=0)
 
     # -- encode ---------------------------------------------------------
 
-    def encode(self, data) -> torch.Tensor:
-        """(k, n) uint8 -> (m, n) uint8 parity."""
+    def encode(self, data, mesh=None) -> torch.Tensor:
+        """(k, n) uint8 -> (m, n) uint8 parity.  `mesh` shards the byte
+        axis (single huge segment)."""
         _check_shards(data, self.k, batched=False)
         _check_data_rows(data.shape[0], self.k)
-        return self._apply(self._parity, data)
+        return self._apply(self._parity, data, mesh)
 
-    def encode_batch(self, data) -> torch.Tensor:
-        """(b, k, n) -> (b, m, n)."""
+    def encode_batch(self, data, mesh=None) -> torch.Tensor:
+        """(b, k, n) -> (b, m, n).  `mesh` shards the segment axis."""
         _check_shards(data, self.k, batched=True)
         _check_data_rows(data.shape[1], self.k)
-        return self._apply_batch(self._parity, data)
+        return self._apply_batch(self._parity, data, mesh)
 
     # -- decode ---------------------------------------------------------
 
@@ -383,15 +414,15 @@ class RSCode:
             self.k, self.m, check_present(present, self.k, self.m)
         ).copy()
 
-    def reconstruct(self, shards, present) -> torch.Tensor:
+    def reconstruct(self, shards, present, mesh=None) -> torch.Tensor:
         """shards (>=k, n) rows matching `present` global indices ->
-        (k, n) data."""
+        (k, n) data.  `mesh` shards the byte axis."""
         _check_shards(shards, self.k, batched=False)
         mask = check_present(present, self.k, self.m)
         inv = _inv_cached(self.k, self.m, mask)
-        return self._apply(inv, shards[: self.k])
+        return self._apply(inv, shards[: self.k], mesh)
 
-    def reconstruct_batch(self, shards, present):
+    def reconstruct_batch(self, shards, present, mesh=None):
         """(b, >=k, n) -> (b, k, n).
 
         `present` is either ONE survivor list shared by every segment (a
@@ -399,14 +430,16 @@ class RSCode:
         lists — segments are then grouped by survivor mask (one host
         inverse per distinct mask, one slab stream per group) and host
         uint8 comes back, assembled in segment order, bit-identical to
-        per-item gf256.rs_decode_ref.
+        per-item gf256.rs_decode_ref.  `mesh` shards the segment axis.
         """
         _check_shards(shards, self.k, batched=True)
         if _is_per_segment(present):
-            return RSStream(self, present=present).run_batch(_host_u8(shards))
+            return RSStream(self, present=present, mesh=mesh).run_batch(
+                _host_u8(shards)
+            )
         mask = check_present(present, self.k, self.m)
         inv = _inv_cached(self.k, self.m, mask)
-        return self._apply_batch(inv, shards[:, : self.k])
+        return self._apply_batch(inv, shards[:, : self.k], mesh)
 
 
 # ---------------------------------------------------------------- streams
@@ -436,16 +469,28 @@ class RSStream:
     observed into the process-wide cess_rs_* histograms, and each `run` or
     `run_batch` adds its bytes, one stream and its seconds to the cess_rs_*
     counters.  On the CPU the same loop runs without streams.
+
+    `mesh` splits each piece's product over the mesh's ranks (the columns
+    of a `run` tile, the segments of a `run_batch` slab), with `tile` and
+    `slab` rounded up to multiples of the mesh size; the staging and the
+    copy streams stay on the code's device.
     """
 
     def __init__(
-        self, code: RSCode, *, present=None,
+        self, code: RSCode, *, present=None, mesh=None,
         tile: int | None = None, slab: int | None = None,
         stages: dict | None = None,
     ) -> None:
+        if mesh is not None:
+            mesh.require_type(code.device)
         self.code = code
+        self.mesh = mesh
         self.tile = int(tile) if tile else code.tile
         self.slab = int(slab) if slab else SLAB
+        if mesh is not None:
+            n_dev = mesh.size
+            self.tile = -(-self.tile // n_dev) * n_dev
+            self.slab = -(-self.slab // n_dev) * n_dev
         self.stages = stages
         self.present = present
         if present is not None and not _is_per_segment(present):
@@ -481,14 +526,22 @@ class RSStream:
             self._staging[direction] = bufs
         return bufs
 
-    def _pipeline(self, mat: np.ndarray, items, fill, drain) -> None:
+    def _pipeline(self, mat: np.ndarray, items, fill, drain, axis: int) -> None:
         """mat @ x for each piece: items[t] = (b, w) is piece t's shape,
         fill(t, view, p) writes part p of its (b, k, w) input into a host
         view and drain(t, view, p) reads part p of its (b, rows of mat, w)
-        output from one, the HOST_THREADS parts at once."""
+        output from one, the HOST_THREADS parts at once.  With a mesh the
+        product is split over its ranks along `axis`."""
         code = self.code
         k, r = code.k, mat.shape[0]
-        op = code._mat_dev(mat)
+        if self.mesh is None:
+            op = code._mat_dev(mat)
+
+            def product(x):
+                return code._product(op, x)
+        else:
+            def product(x):
+                return code._sharded_product(mat, x, self.mesh, axis)
         most = max(b * w for b, w in items)
         pins_in = self._buffers("in", most * k)
         pins_out = self._buffers("out", most * r)
@@ -532,7 +585,7 @@ class RSStream:
                         comp.wait_stream(h2d)
                         with torch.cuda.stream(comp):
                             x.record_stream(comp)
-                            y = code._product(op, x)
+                            y = product(x)
                         d2h.wait_stream(comp)
                         with torch.cuda.stream(d2h):
                             y.record_stream(d2h)
@@ -540,7 +593,7 @@ class RSStream:
                             done = d2h.record_event()
                         del x, y
                     else:
-                        host_out = code._product(op, host_in)
+                        host_out = product(host_in)
                     t0 = self._mark("matmul", t0)
                     if pending is not None:
                         t0 = finish(*pending, t0)
@@ -591,7 +644,7 @@ class RSStream:
             cs, ca = cols(t, buf, p)
             res[:, ca] = buf[0, :, cs]
 
-        self._pipeline(mat, [(1, min(self.tile, n - o)) for o in offs], fill, drain)
+        self._pipeline(mat, [(1, min(self.tile, n - o)) for o in offs], fill, drain, axis=2)
         self._account(data.nbytes, t_start)
         return res
 
@@ -639,7 +692,7 @@ class RSStream:
             out[sb] = buf[ss]
 
         n = batch.shape[2]
-        self._pipeline(mat, [(min(self.slab, count - o), n) for o in offs], fill, drain)
+        self._pipeline(mat, [(min(self.slab, count - o), n) for o in offs], fill, drain, axis=0)
 
     def run_batch(self, batch) -> np.ndarray:
         """(B, rows, n) host segments -> (B, out_rows, n) host uint8.

@@ -3,15 +3,23 @@
 Verification runs inside the shared bisection of proof/backend.py, so
 verdict bitmaps equal CpuBackend's, by one of two routes:
 
- * fused (`fused=True`, the default on both devices): the per-chunk
-   pipeline of proof/fused.py, kernels K1–K4 on CUDA tensors;
- * staged (`fused=False`): the JAX package's XlaBackend route off a TPU —
+ * fused: the per-chunk pipeline of proof/fused.py, kernels K1–K4 on
+   CUDA tensors;
+ * staged: the JAX package's XlaBackend route off a TPU and on a mesh —
    the σ subgroup gate (one K3 [r]-chain), the Fr limb contraction of μ,
    and one K3 ladder fold per MSM (σ^ρ, the per-item H fold, its ρ fold,
    the u fold), each stage ending in host values.  On the card, at batch
    scale, the chunk points are hashed on the device (K1 with K4) and stay
    there for the H fold, with h_eff folded into the coefficients; on the
    CPU they are hashed on the host.
+
+`fused` picks the route as XlaBackend's does: None (the default) is the
+fused route without a mesh and the staged route with one; True is the
+fused route and refuses a mesh (the fused pipeline is single-device, so
+a mesh beside it would be silently ignored); False is the staged route.
+`mesh` (parallel/verify.py Mesh, of the backend's device type) shards the
+staged route's μ combination over its ranks (parallel.combine_mu_sharded);
+the σ gate and the folds stay on `device`, as in the JAX package.
 
 Proving aggregates μ with the Fr limb contraction (ops/fr.py) and σ with
 one grouped ladder (K3) per chunk of fragments.
@@ -166,9 +174,16 @@ def _subgroup_ok(points: list[G1Point], device: torch.device) -> bool:
 class TorchBackend(ProofBackend):
     name = "torch"
 
-    def __init__(self, device=None, fused: bool = True) -> None:
+    def __init__(self, device=None, fused: bool | None = None, mesh=None) -> None:
         self.device = resolve_device(device)
-        # fused=False takes the staged route
+        if mesh is not None:
+            mesh.require_type(self.device)
+        if fused and mesh is not None:
+            raise ValueError(
+                "fused=True is single-device and incompatible with a "
+                "mesh; use fused=None/False on meshed backends"
+            )
+        self.mesh = mesh
         self.fused = fused
         # wall seconds per stage, accumulated over every check
         self.stage_seconds: dict[str, float] = {}
@@ -234,7 +249,7 @@ class TorchBackend(ProofBackend):
         """
         if not items:
             return True
-        if self.fused:
+        if self.fused is not False and self.mesh is None:
             return combined_check_fused(
                 pk, items, seed, params, stages=self.stage_seconds,
                 device=self.device,
@@ -272,8 +287,18 @@ class TorchBackend(ProofBackend):
         if not sub_ok:
             return False
 
-        # u-side exponents Σ_b ρ_b μ_bj
-        exps = fr.limbs_to_ints(fr.combine_mu(rhos, mu_limbs, dev))
+        # u-side exponents Σ_b ρ_b μ_bj, sharded over the mesh when one is
+        # given (ρ=0 padding rows contribute nothing)
+        if self.mesh is not None:
+            from ..parallel import combine_mu_sharded, pad_batch_rows
+
+            n = self.mesh.size
+            exps = fr.limbs_to_ints(combine_mu_sharded(
+                self.mesh, pad_batch_rows(frontend.rho_limbs7(rhos), n),
+                pad_batch_rows(mu_limbs, n),
+            ))
+        else:
+            exps = fr.limbs_to_ints(fr.combine_mu(rhos, mu_limbs, dev))
         t0 = mark("u_fold", t0)
 
         lhs = g1.msm(sigmas, rhos, bits=_RHO_BITS, device=dev)

@@ -36,7 +36,7 @@ Phases, one line each on stdout:
      the host fold on 256 lanes and with raw 224-bit scalars v·h_eff on
      uncleared hash points: seconds, the Fp products the plain code
      computed, the bound of the bucket method and peak memory
-  4  a `kernels` JSON line (printed after phase 8-node): launches on the
+  4  a `kernels` JSON line (printed after phase 9-epoch): launches on the
      B = 3072 run and on the staged run (`launches_staged`), time, twin
      time, bound and the check error of every kernel
   5-rs  the Reed-Solomon data plane at bench.py's `bench_rs` geometry:
@@ -85,6 +85,25 @@ Phases, one line each on stdout:
      launches around the prove and the verify (`launches_node` in the
      kernels line) and the cess_proof_checks and cess_rs_streams_total
      this process observed in phases 3 and 5-rs.
+  9-mesh  the device mesh (cess_tpu_torch/parallel) on a one-rank mesh
+     from make_mesh() and a four-rank mesh on the one card (four shards
+     of every meshed batch: the sharding logic, not a multi-card
+     measurement): phase 3's batch through TorchBackend(mesh=…), the
+     staged route with the μ combination sharded — all True in exactly
+     one combined check (K1 1, K4 1, K2 0, K3 5; `launches_mesh` in the
+     kernels line, the four-rank run), the combined check True and False
+     alone, the tampered sub-batch isolated — proofs/s and the stage
+     split; combine_mu_sharded over 3,071 rows against fr.combine_mu;
+     msm_sharded against K3's msm at 3,072 lanes (one and four ranks)
+     and at config 5's 100,000 × 128 bits (four); on four ranks the BLS
+     batch check at 256 signatures (True, and False with one tampered),
+     verify_signatures isolating the tampered one among 64 and
+     vrf.verify_claims isolating a forged claim among 64; RS on one slab
+     of 8 MiB fragments and a byte-axis run over an odd width, both
+     products, one and four ranks, bytes equal to the unmeshed path's.
+  9-epoch  parallel.run_epoch(make_mesh(), check=True) at BASELINE config
+     5's 100,000 proofs, the rest cut (EPOCH_CUTS): every stage flag True,
+     each stage's seconds and K1-K4's launches (`launches_epoch`).
 
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 non-zero before it.  Imports neither jax nor cess_tpu.
@@ -169,7 +188,7 @@ def main() -> None:
     phase_matrix(torch, dev)
     launches, batch = phase_geometry(torch, dev, BATCH)
     staged_launches = phase_staged(torch, card, *batch)
-    phase_msm(torch, dev, card, *batch)
+    config5 = phase_msm(torch, dev, card, *batch)
     rows = []
     for name in ("K1", "K4", "K2", "K3"):
         r = dict(results[name])
@@ -184,9 +203,14 @@ def main() -> None:
     k3["launches_bls_check"] = phase_signatures(torch, dev, card)
     sim_launches = phase_sim(torch, dev, card)
     node_launches = phase_node(torch, card)
+    mesh_launches = phase_mesh(torch, card, *batch, config5)
+    batch = config5 = None
+    epoch_launches = phase_epoch(torch, card)
     for name, r in zip(("K1", "K4", "K2", "K3"), rows):
         r["launches_sim"] = sim_launches[name]
         r["launches_node"] = node_launches[name]
+        r["launches_mesh"] = mesh_launches[name]
+        r["launches_epoch"] = epoch_launches[name]
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -896,12 +920,13 @@ def _bucket_work(scalars, bits: int) -> tuple[int, int]:
     return 12 * adds + 8 * dbls, 2 * dbls
 
 
-def phase_msm(torch, dev, card: str, pk, items, params) -> None:
+def phase_msm(torch, dev, card: str, pk, items, params) -> tuple:
     """3-msm: g1.msm_wide (the flat Pippenger MSM, plain torch) on the
     card against g1.msm (K3 plus the tree) on phase 3's σ fold (3,072
     lanes × 128 bits) and on config 5's (100,000 lanes × 128 bits), then
     against host folds on 256 lanes and with raw 224-bit scalars v·h_eff
-    on uncleared hash points.  Any difference fails the phase."""
+    on uncleared hash points.  Any difference fails the phase.  Returns
+    config 5's points and scalars for phase 9-mesh."""
     import numpy as np
 
     from cess_tpu_torch.ops import bls12_381 as bls
@@ -939,7 +964,8 @@ def phase_msm(torch, dev, card: str, pk, items, params) -> None:
     t0 = time.perf_counter()
     pts = g1.projective_to_points(*(a.T for a in g1.scalar_mul_ladder((gX, gY, gZ), s)))
     craft_s = time.perf_counter() - t0
-    against_msm("config5_100000", pts, [int.from_bytes(rng.bytes(16), "little") for _ in pts])
+    scalars5 = [int.from_bytes(rng.bytes(16), "little") for _ in pts]
+    against_msm("config5_100000", pts, scalars5)
     out["config5_100000"]["craft_s"] = craft_s
 
     # 256 lanes against the host fold Σ [ρ_i]σ_i
@@ -968,6 +994,7 @@ def phase_msm(torch, dev, card: str, pk, items, params) -> None:
     if got != want:
         fail("3-msm: msm_wide differs from the host fold on raw 224-bit scalars")
     say("3-msm", card=card, checks=out, flat_chunk_window_lanes=g1._FLAT_CHUNK)
+    return pts, scalars5
 
 
 # ------------------------------------------------------------ phase 5-rs
@@ -1936,6 +1963,240 @@ def _node_run(torch, card: str, spec_path: str, ports: list[int], procs: dict) -
         fail(f"8-node: the prove and verify launched no {missing}")
     if not all(v > 0 for v in observed.values()):
         fail(f"8-node: this process observed no stage histograms: {observed}")
+    return launches
+
+
+
+# ------------------------------------------------------------ phase 9
+
+# The mesh's ranks on the one card: four shards of every meshed batch,
+# the sharding logic and not a multi-card measurement.
+MESH_RANKS = 4
+# Lanes of phase 9-mesh's signature checks (phase 6's cut is 2,048: the
+# host hashes and decompresses in pure Python).
+MESH_SIGS = 256
+MESH_SUB = 64
+# Phase 9-epoch: BASELINE config 5 at its 100,000 proofs, the rest cut.
+EPOCH = {"n_proofs": 100_000, "n_segments": 64, "fragment_bytes": RS_FRAG,
+         "n_signatures": 256, "n_headers": 600, "n_offences": 64}
+EPOCH_CUTS = {"n_segments": "64 RS segments of 8 MiB fragments (1 GiB), from 1M",
+              "n_signatures": "256 signatures (pure-Python signing and hashing)",
+              "n_headers": "600 headers, one hour of 6 s slots, as 6-vrf",
+              "n_offences": "64 offences"}
+
+
+def _meshes(torch):
+    from cess_tpu_torch.parallel import Mesh, make_mesh
+
+    return {"1": make_mesh(), str(MESH_RANKS): Mesh((torch.device("cuda", 0),) * MESH_RANKS)}
+
+
+def _count(counters) -> dict:
+    return {k: f.launches for k, f in counters.items()}
+
+
+def phase_mesh(torch, card: str, pk, items, params, config5) -> dict:
+    """9-mesh: the meshed calls on a one-rank mesh from make_mesh() and a
+    four-rank mesh on the one card — the staged verify with the μ
+    combination sharded (all True, exactly one combined check, the
+    combined check True and False alone, the tampered sub-batch
+    isolated), combine_mu_sharded over an odd batch, msm_sharded against
+    K3's msm, the signature verifiers (batch checks on four ranks, the
+    bisections on one), and RS.  Returns the launches of
+    the four-rank verify."""
+    import numpy as np
+
+    from cess_tpu_torch.consensus import vrf
+    from cess_tpu_torch.ops import bls12_381 as bls
+    from cess_tpu_torch.ops import bls_agg, fr, g1, podr2, rs
+    from cess_tpu_torch.parallel import combine_mu_sharded, msm_sharded, pad_batch_rows
+    from cess_tpu_torch.proof import TorchBackend, frontend
+
+    t_start = time.perf_counter()
+    meshes = _meshes(torch)
+    counters = _kernel_counters()
+    batch = len(items)
+    sub = list(items[:64])
+    nm, c, p = sub[17]
+    sub[17] = (nm, c, podr2.Podr2Proof(p.sigma, [1] + p.mu[1:]))
+    verify, launches = {}, {}
+    for tag, mesh in meshes.items():
+        backend = TorchBackend(mesh=mesh)
+        for f in counters.values():
+            f.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        verdicts = backend.verify_batch(pk, items, b"bench-seed", params)
+        torch.cuda.synchronize()
+        verify_s = time.perf_counter() - t0
+        launches[tag] = _count(counters)
+        stages = dict(backend.stage_seconds)
+        if verdicts != [True] * batch:
+            fail(f"9-mesh {tag} ranks: {verdicts.count(False)} of {batch} proofs rejected")
+        if launches[tag] != STAGED_LAUNCHES:
+            fail(f"9-mesh {tag} ranks: launches {launches[tag]}, one combined check gives "
+                 f"{STAGED_LAUNCHES}")
+        if backend._combined_check(pk, items, b"bench-seed", params) is not True:
+            fail(f"9-mesh {tag} ranks: the combined check refused the honest batch")
+        if backend._combined_check(pk, sub, b"bench-seed-2", params) is not False:
+            fail(f"9-mesh {tag} ranks: the combined check passed the tampered sub-batch")
+        t0 = time.perf_counter()
+        v = backend.verify_batch(pk, sub, b"bench-seed-2", params)
+        tampered_s = time.perf_counter() - t0
+        if [i for i, x in enumerate(v) if not x] != [17]:
+            fail(f"9-mesh {tag} ranks: tampered sub-batch verdicts {v}")
+        verify[tag] = {"ranks": mesh.size, "verify_seconds": verify_s,
+                       "proofs_per_s": batch / verify_s, "stage_seconds": stages,
+                       "launches": launches[tag], "tampered_seconds": tampered_s}
+
+    # the sharded μ combination over an odd batch, padded, against the
+    # unmeshed contraction on random canonical limbs
+    rng = np.random.default_rng(9)
+    rows = batch - 1
+    words = rng.integers(0, 1 << 32, size=(rows, params.s, 8), dtype=np.uint64).astype(np.uint32)
+    words[..., 7] &= (1 << 26) - 1  # < 2^250 < r
+    mu_limbs = fr.words_to_limbs(words, fr.LIMB_BITS, fr.NLIMBS)
+    rhos = [int.from_bytes(rng.bytes(16), "little") | 1 for _ in range(rows)]
+    four = meshes[str(MESH_RANKS)]
+    want = fr.combine_mu(rhos, mu_limbs, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = combine_mu_sharded(four, pad_batch_rows(frontend.rho_limbs7(rhos), four.size),
+                             pad_batch_rows(mu_limbs, four.size))
+    combine_s = time.perf_counter() - t0
+    if not np.array_equal(got, want):
+        fail("9-mesh: combine_mu_sharded differs from fr.combine_mu")
+    combine = {"rows": rows, "sectors": params.s, "ranks": four.size, "equal": True,
+               "seconds": combine_s}
+
+    # msm_sharded against K3's msm on the σ fold and config 5's
+    sigmas = frontend.decompress_sigmas(items)
+    encs = frontend.encode_proofs(items)
+    srhos = podr2.batch_rho(podr2.batch_transcript(
+        b"bench-seed", [podr2.BatchItem(n, c, p) for n, c, p in items], encodings=encs), batch)
+    msm = {}
+    for tag, mesh, pts, scs in [("sigma_fold_3072_1", meshes["1"], sigmas, srhos),
+                                (f"sigma_fold_3072_{MESH_RANKS}", four, sigmas, srhos),
+                                (f"config5_100000_{MESH_RANKS}", four, *config5)]:
+        got, secs, _ = _msm_timed(torch, lambda: msm_sharded(mesh, pts, scs, bits=128))
+        want, k3_s, _ = _msm_timed(torch, lambda: g1.msm(pts, scs, bits=128, device="cuda"))
+        msm[tag] = {"lanes": len(pts), "ranks": mesh.size, "equal": got == want,
+                    "msm_sharded_s": secs, "k3_msm_s": k3_s}
+        if got != want:
+            fail(f"9-mesh: msm_sharded differs from msm at {tag}")
+
+    # the signature verifiers on the four-rank mesh
+    keys = [bls.keygen(b"smoke-mesh-key-%d" % k) for k in range(BLS_KEYS)]
+    pks = [bls.sk_to_pk(sk) for sk in keys]
+    msgs = [b"smoke-mesh-msg-%06d" % i for i in range(MESH_SIGS)]
+    sig_pts = g1.scalar_mul_batch([bls.hash_to_g1(m) for m in msgs],
+                                  [keys[i % BLS_KEYS] for i in range(MESH_SIGS)], device="cuda")
+    triples = [(pks[i % BLS_KEYS], m, q.to_bytes()) for i, (m, q) in enumerate(zip(msgs, sig_pts))]
+    tampered = list(triples)
+    at = MESH_SUB + MESH_SUB * 37 // 64  # inside the second sub-batch
+    pk_, msg_, _ = tampered[at]
+    tampered[at] = (pk_, msg_, triples[at + 1][2])
+    sigs = {}
+    t0 = time.perf_counter()
+    sigs["honest"] = bls_agg.batch_verify_signatures(triples, b"smoke-mesh", mesh=four)
+    sigs["honest_seconds"] = time.perf_counter() - t0
+    sigs["tampered_refused"] = not bls_agg.batch_verify_signatures(tampered, b"smoke-mesh", mesh=four)
+    # the bisections isolate on the one-rank mesh: each of their 13 checks
+    # pays the plain-torch flat MSM once a rank
+    one = meshes["1"]
+    t0 = time.perf_counter()
+    verdicts = bls_agg.verify_signatures(tampered[MESH_SUB:2 * MESH_SUB], b"smoke-mesh", mesh=one)
+    sigs["bisection_seconds"] = time.perf_counter() - t0
+    sigs["bisection_false_at"] = [i for i, v in enumerate(verdicts) if not v]
+    vkeys = keys[:VRF_VALIDATORS]
+    vmsgs = [vrf.vrf_input("cess-smoke-mesh", 1, b"\x22" * 32, slot) for slot in range(MESH_SUB)]
+    claims = []
+    for i, m in enumerate(vmsgs):
+        out, proof = vrf.prove(vkeys[i % VRF_VALIDATORS], m)
+        claims.append((pks[i % VRF_VALIDATORS], m, out, proof))
+    vat = MESH_SUB * 23 // 64
+    honest_claims = list(claims)
+    claims[vat] = claims[vat][:2] + vrf.prove(bls.keygen(b"smoke-mesh-thief"), vmsgs[vat])
+    t0 = time.perf_counter()
+    sigs["vrf_honest"] = vrf.batch_verify(honest_claims, b"smoke-mesh", mesh=four)
+    sigs["vrf_forged_refused"] = not vrf.batch_verify(claims, b"smoke-mesh", mesh=four)
+    sigs["vrf_batch_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    verdicts = vrf.verify_claims(claims, b"smoke-mesh", mesh=one)
+    sigs["vrf_seconds"] = time.perf_counter() - t0
+    sigs["vrf_false_at"] = [i for i, v in enumerate(verdicts) if not v]
+    if not (sigs["honest"] is True and sigs["tampered_refused"]
+            and sigs["vrf_honest"] is True and sigs["vrf_forged_refused"]
+            and sigs["bisection_false_at"] == [at - MESH_SUB] and sigs["vrf_false_at"] == [vat]):
+        fail(f"9-mesh signature checks: {sigs}")
+
+    # RS: one slab of 8 MiB fragments, both products, and a byte-axis run
+    # over a width that is not a multiple of the ranks
+    slab = rs.SLAB
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    data = torch.randint(0, 256, (slab, 2, RS_FRAG), dtype=torch.uint8, device="cuda",
+                         generator=gen).cpu().numpy()
+    wide = torch.randint(0, 256, (2, RS_FRAG + 3), dtype=torch.uint8, device="cuda",
+                         generator=gen).cpu().numpy()
+    code = rs.segment_code()
+    parity = rs.RSStream(code).run_batch(data)
+    surv = np.concatenate([data[:, 1:2], parity], axis=1)
+    rec_plain = rs.RSStream(code, present=[1, 2]).run_batch(surv)
+    wide_par = rs.RSStream(code).run(wide)
+    wide_surv = np.concatenate([wide[:1], wide_par])
+    rs_out = {"segments": slab, "fragment_bytes": RS_FRAG, "run_width": wide.shape[1],
+              "path": code.path, "plain_reconstruct_equal_data": bool(np.array_equal(rec_plain, data))}
+    for tag, mesh in meshes.items():
+        t0 = time.perf_counter()
+        checks = {
+            "run_batch_encode": np.array_equal(rs.RSStream(code, mesh=mesh).run_batch(data), parity),
+            "run_batch_reconstruct": np.array_equal(
+                rs.RSStream(code, present=[1, 2], mesh=mesh).run_batch(surv), rec_plain),
+            "reconstruct_batch": np.array_equal(
+                code.reconstruct_batch(surv, [1, 2], mesh=mesh).cpu().numpy(), rec_plain),
+            "run_encode": np.array_equal(rs.RSStream(code, mesh=mesh).run(wide), wide_par),
+            "run_reconstruct": np.array_equal(
+                rs.RSStream(code, present=[0, 2], mesh=mesh).run(wide_surv), wide),
+        }
+        rs_out[tag] = {k: bool(v) for k, v in checks.items()} | {
+            "seconds": time.perf_counter() - t0}
+        if not all(checks.values()):
+            fail(f"9-mesh RS {tag} ranks: {checks}")
+    if not rs_out["plain_reconstruct_equal_data"]:
+        fail("9-mesh RS: the unmeshed reconstruction differs from the data")
+    say("9-mesh", card=card, ranks={t: m.size for t, m in meshes.items()},
+        note="the ranks share one card: a check of the sharding, not a multi-card measurement",
+        verify=verify, combine_mu_sharded=combine, msm_sharded=msm, signatures=sigs,
+        rs=rs_out, seconds=time.perf_counter() - t_start)
+    return launches[str(MESH_RANKS)]
+
+
+def phase_epoch(torch, card: str) -> dict:
+    """9-epoch: run_epoch over make_mesh() at config 5's 100,000 proofs,
+    every stage checked on the host; the rest cut (EPOCH_CUTS).  Returns
+    the launches of the run."""
+    from cess_tpu_torch.parallel import make_mesh, run_epoch
+
+    mesh = make_mesh()
+    counters = _kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = run_epoch(mesh, check=True, **EPOCH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _count(counters)
+    flags = {k: getattr(report, k) for k in
+             ("rs_ok", "combine_ok", "sigma_ok", "bls_ok", "vrf_ok", "offences_ok")}
+    say("9-epoch", card=card, ranks=mesh.size, ok=report.ok, flags=flags,
+        proofs=report.proofs, segments=report.segments, rs_bytes=report.rs_bytes,
+        signatures=report.signatures, headers=report.headers, offences=report.offences,
+        n_challenged=5, n_sectors=3, cuts=EPOCH_CUTS, stage_seconds=report.seconds,
+        wall_seconds=wall, launches=launches)
+    if not report.ok or not all(flags.values()):
+        fail(f"9-epoch: {flags}")
     return launches
 
 

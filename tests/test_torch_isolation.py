@@ -155,6 +155,24 @@ def test_module_walk_reaches_the_node_light_client_and_cli():
                                      "cess_tpu_torch.__main__"} <= set(_all_modules())
 
 
+def test_module_walk_reaches_the_mesh():
+    assert {f"cess_tpu_torch.parallel.{m}" for m in ("verify", "msm", "epoch_sim")} \
+        | {"cess_tpu_torch.parallel"} <= set(_all_modules())
+
+
+def test_mesh_entry_points_refuse_without_cuda(monkeypatch):
+    """The mesh defaults to the cards: without one, building it, the
+    epoch over it and a mesh named by CUDA devices all raise."""
+    from cess_tpu_torch.parallel import Mesh, make_mesh, run_epoch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (make_mesh, lambda: make_mesh(4), run_epoch,
+                 lambda: Mesh((torch.device("cuda", 0),) * 4)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert make_mesh(2, device="cpu").size == 2
+
+
 def test_node_services_refuse_without_cuda(monkeypatch):
     """A node resolves its device at construction: without a card it
     raises there, and never reaches a TEE registration whose IAS check
