@@ -171,6 +171,49 @@ def _subgroup_ok(points: list[G1Point], device: torch.device) -> bool:
     return bool((glv.subgroup_mask(X, Y, Z) == 1).all())
 
 
+def h_fold_pairs(items: list[VerifyItem]):
+    """The staged H fold's (name, index) pairs: (names, name_ids,
+    indices, counts), with zip-truncation semantics, as the host
+    reference's zip(coefficients(), indices)."""
+    B = len(items)
+    names = [name for name, _, _ in items]
+    counts = [min(len(ch.indices), len(ch.randoms)) for _, ch, _ in items]
+    name_ids = np.repeat(np.arange(B, dtype=np.uint32), counts)
+    indices = np.concatenate(
+        [np.asarray(ch.indices[:c], dtype=np.uint64) for (_, ch, _), c in zip(items, counts)]
+    )
+    return names, name_ids, indices, counts
+
+
+def h_fold_grouped(items: list[VerifyItem], counts: list[int], points) -> list[G1Point]:
+    """Per-item Π_c [v_c·h_eff]Q_c over the uncleared hash points (X, Y,
+    Z) of `h_fold_pairs`' pairs, in pair order: one grouped K3 fold at
+    224 bits on the points' device, and its tree."""
+    B = len(items)
+    device = points[0].device
+    # each item's lanes padded to a power-of-two group; a dead lane
+    # has scalar 0, an ∞ contribution whatever point it gathers
+    g = 1 << max(0, (max(counts) - 1).bit_length())
+    lane_map = np.zeros((B, g), dtype=np.int64)
+    digits = np.zeros((B, g, g1.R_LIMBS), dtype=np.int32)
+    cache: dict[int, np.ndarray] = {}
+    pos = 0
+    for b, ((_, ch, _), cnt) in enumerate(zip(items, counts)):
+        for k, v in enumerate(ch.coefficients()[:cnt]):
+            if v not in cache:
+                cache[v] = g1.scalars_to_digits([v * h2c.H_EFF], g1.R_LIMBS)[:, 0]
+            lane_map[b, k] = pos + k
+            digits[b, k] = cache[v]
+        pos += cnt
+    flat = torch.as_tensor(lane_map.reshape(-1), device=device)
+    s = g1.limbs_from_numpy(digits.reshape(B * g, g1.R_LIMBS).T, device)
+    rX, rY, rZ = g1._msm_kernel(
+        *(c.index_select(1, flat) for c in points), s,
+        bits=_COEFF_HEFF_BITS, group=g,
+    )
+    return g1.projective_to_points(rX.T, rY.T, rZ.T)
+
+
 class TorchBackend(ProofBackend):
     name = "torch"
 
@@ -206,39 +249,11 @@ class TorchBackend(ProofBackend):
         v_c·h_eff scalars ([v·h_eff]Q = [v]([h_eff]Q), so the result is
         the cleared fold).  The scalars are NOT reduced mod r: the points
         have order h·r."""
-        B = len(items)
-        names = [name for name, _, _ in items]
-        # zip-truncation semantics, as the host reference's
-        # zip(coefficients(), indices)
-        counts = [min(len(ch.indices), len(ch.randoms)) for _, ch, _ in items]
-        name_ids = np.repeat(np.arange(B, dtype=np.uint32), counts)
-        indices = np.concatenate(
-            [np.asarray(ch.indices[:c], dtype=np.uint64) for (_, ch, _), c in zip(items, counts)]
-        )
+        names, name_ids, indices, counts = h_fold_pairs(items)
         (X, Y, Z), _ = h2c.hash_pairs_device(
             names, name_ids, indices, podr2.H_DST, device=self.device
         )
-        # each item's lanes padded to a power-of-two group; a dead lane
-        # has scalar 0, an ∞ contribution whatever point it gathers
-        g = 1 << max(0, (max(counts) - 1).bit_length())
-        lane_map = np.zeros((B, g), dtype=np.int64)
-        digits = np.zeros((B, g, g1.R_LIMBS), dtype=np.int32)
-        cache: dict[int, np.ndarray] = {}
-        pos = 0
-        for b, ((_, ch, _), cnt) in enumerate(zip(items, counts)):
-            for k, v in enumerate(ch.coefficients()[:cnt]):
-                if v not in cache:
-                    cache[v] = g1.scalars_to_digits([v * h2c.H_EFF], g1.R_LIMBS)[:, 0]
-                lane_map[b, k] = pos + k
-                digits[b, k] = cache[v]
-            pos += cnt
-        flat = torch.as_tensor(lane_map.reshape(-1), device=self.device)
-        s = g1.limbs_from_numpy(digits.reshape(B * g, g1.R_LIMBS).T, self.device)
-        rX, rY, rZ = g1._msm_kernel(
-            *(c.index_select(1, flat) for c in (X, Y, Z)), s,
-            bits=_COEFF_HEFF_BITS, group=g,
-        )
-        return g1.projective_to_points(rX.T, rY.T, rZ.T)
+        return h_fold_grouped(items, counts, (X, Y, Z))
 
     @torch.inference_mode()
     def _combined_check(self, pk, items, seed, params: Podr2Params) -> bool:

@@ -15,7 +15,8 @@ Phases, one line each on stdout:
   3  protocol geometry (1024 chunks × 265 sectors, 47 challenged chunks):
      B = 3072 crafted proofs verify all True with every kernel's launch
      count read around that run; the same batch once more under
-     torch.profiler for the device's busy time; a 64-proof sub-batch
+     torch.profiler for the device's busy time (the union of the trace's
+     device intervals); a 64-proof sub-batch
      with one tampered μ isolates exactly that proof; which XMD path
      hashed the chunk points (`xmd`: native or pure) and the stage split;
      3-host times the check's host steps alone (pk and σ decompression,
@@ -30,6 +31,19 @@ Phases, one line each on stdout:
      the device H fold at the batch's launch shapes (K1 on 144,384
      pairs, K3's wide ladder on 196,608 lanes × 224 bits) equals the host
      fold Π_c H(name‖i_c)^{v_c} on every 12th item
+  3-profile  tools/torch_profile_verify.py on phase 3's batch: the staged
+     check's steps timed one at a time (ρ, the μ combination, the σ gate,
+     the σ MSM, the host XMD, the SSWU map, the grouped H fold, the ρ
+     fold, the u fold, the pairing), then the fused and the staged route
+     once warm and once under torch.profiler — all True with exactly
+     PROFILE_LAUNCHES (fused K1 3, K4 3, K2 4, K3 3; staged as 3-staged),
+     wall ms, the device busy ms as the union of the trace's device
+     intervals beside the per-name sum, the idle share in [0, 1], the
+     eight largest device entries, the stage seconds — and the proof
+     stage histograms' totals and host/device overlap fraction
+  3-frontend  tools/torch_bench_frontend.py at B = 3,072: σ
+     decompression, transcript and ρ, μ packing on the host, then the
+     deferred σ subgroup gate on the card (one K3 [r]-chain), True
   3-msm  g1.msm_wide, the flat Pippenger MSM (plain torch), against
      g1.msm (K3 and the tree) on the batch's σ fold (3,072 lanes × 128
      bits) and on BASELINE config 5's (100,000 lanes × 128 bits), against
@@ -37,8 +51,9 @@ Phases, one line each on stdout:
      uncleared hash points: seconds, the Fp products the plain code
      computed, the bound of the bucket method and peak memory
   4  a `kernels` JSON line (printed after phase 9-epoch): launches on the
-     B = 3072 run and on the staged run (`launches_staged`), time, twin
-     time, bound and the check error of every kernel
+     B = 3072 run, on the staged run (`launches_staged`) and on 3-profile's
+     two profiled runs (`launches_profile`, by route), time, twin time,
+     bound and the check error of every kernel
   5-rs  the Reed-Solomon data plane at bench.py's `bench_rs` geometry:
      RS(2,1) segments of 8 MiB fragments, 640 of them (10 GiB of
      survivors, fewer if host memory is short) reconstructed from
@@ -84,7 +99,15 @@ Phases, one line each on stdout:
      against its own verified anchor.  Prints each step's seconds, K1-K4's
      launches around the prove and the verify (`launches_node` in the
      kernels line) and the cess_proof_checks and cess_rs_streams_total
-     this process observed in phases 3 and 5-rs.
+     this process observed in phases 3 and 5-rs.  Then the port's
+     operator tools on that network: tools/torch_telemetry_report.py's
+     FleetCollector samples the validators and the replica (3 samples or
+     more across 2 new blocks) and reports with this process's proof
+     stage registry merged (`8-node-fleet`: no node unreachable, blocks/s
+     above 0, a combined check in the proof family), and
+     tools/torch_read_loadgen.py's run_load drives 2 verifying light
+     clients x 10 proof-batch reads on the replica (`8-node-load`: 20
+     reads, no error).
   9-mesh  the device mesh (cess_tpu_torch/parallel) on a one-rank mesh
      from make_mesh() and a four-rank mesh on the one card (four shards
      of every meshed batch: the sharding logic, not a multi-card
@@ -188,12 +211,15 @@ def main() -> None:
     phase_matrix(torch, dev)
     launches, batch = phase_geometry(torch, dev, BATCH)
     staged_launches = phase_staged(torch, card, *batch)
+    profile_launches = phase_profile(torch, card, *batch)
+    phase_frontend(card)
     config5 = phase_msm(torch, dev, card, *batch)
     rows = []
     for name in ("K1", "K4", "K2", "K3"):
         r = dict(results[name])
         r["launches"] = launches[name]
         r["launches_staged"] = staged_launches[name]
+        r["launches_profile"] = profile_launches[name]
         rows.append(r)
     missing = [r["name"] for r in rows if r["launches"] == 0]
     if missing:
@@ -648,12 +674,15 @@ def _device_rows(torch, fn):
 
 def _device_busy(torch, fn):
     """fn() under torch.profiler → (its result, device busy ms, wall ms,
-    the largest device entries).  Busy is None where the trace holds no
-    device time (the profiler could not reach the card)."""
-    out, rows, wall_ms = _device_rows(torch, fn)
-    busy = sum(ms for _, ms in rows)
-    top = {k: round(ms, 3) for k, ms in sorted(rows, key=lambda r: -r[1])[:8]}
-    return out, (busy or None), wall_ms, top
+    the largest device entries), through tools/torch_profile_verify.py's
+    runner: busy is the union of the trace's device intervals (what
+    overlaps on several streams counts once), and a trace that holds no
+    device time raises."""
+    from tools.torch_profile_verify import run_traced
+
+    out, wall_ms, trace = run_traced(fn)
+    top = {k: round(ms, 3) for k, ms in trace["top_device_ms"].items()}
+    return out, trace["device_busy_ms"], wall_ms, top
 
 
 @contextlib.contextmanager
@@ -724,7 +753,7 @@ def phase_geometry(torch, dev, batch: int) -> tuple:
     if verdicts != [True] * batch:
         fail("protocol batch under the profiler: not all True")
     say("3-trace", batch=batch, wall_ms=wall_ms, device_busy_ms=busy_ms,
-        device_idle_share=None if busy_ms is None else 1 - busy_ms / wall_ms,
+        device_idle_share=1 - busy_ms / wall_ms,
         top_device_ms=top)
 
     sub = list(items[:64])
@@ -880,6 +909,55 @@ def phase_staged(torch, card: str, pk, items, params) -> dict:
                 "bits": 224, "seconds": fold_s, "held_items": len(held),
                 "host_seconds": host_s, "equal": True})
     return launches
+
+
+# ------------------------------------------------------------ phase 3-profile
+
+# One passing combined check a route on phase 3's batch: the fused route's
+# three 1,024-proof chunks (K1 with K4 and K2 a chunk, K3's σ ladder a
+# chunk) and its u fold (K2), the staged route's STAGED_LAUNCHES.
+PROFILE_LAUNCHES = {"fused": {"K1": 3, "K4": 3, "K2": 4, "K3": 3},
+                    "staged": STAGED_LAUNCHES}
+def phase_profile(torch, card: str, pk, items, params) -> dict:
+    """3-profile: tools/torch_profile_verify.py on phase 3's batch — the
+    staged check's steps timed one at a time, then each route once warm
+    and once under torch.profiler: all True, exactly PROFILE_LAUNCHES,
+    the device busy time as the union of the trace's device intervals
+    beside the per-name sum, the idle share in [0, 1]; the stage
+    histograms.  Returns {kernel: {route: launches}}."""
+    from tools.torch_profile_verify import profile_verify
+
+    t0 = time.perf_counter()
+    out = profile_verify(pk, items, params)
+    seconds = time.perf_counter() - t0
+    say("3-profile", card=card, seconds=seconds, **out)
+    if not out["components_pairing_true"]:
+        fail("3-profile: the staged check's steps, one at a time, refused the batch")
+    for route, r in out["routes"].items():
+        if not r["all_true"]:
+            fail(f"3-profile: the {route} route refused the batch")
+        if r["launches"] != PROFILE_LAUNCHES[route]:
+            fail(f"3-profile: {route} launches {r['launches']}, one passing combined "
+                 f"check gives {PROFILE_LAUNCHES[route]}")
+        if not 0 <= r["device_idle_share"] <= 1:
+            fail(f"3-profile: {route} idle share {r['device_idle_share']}")
+    return {name: {route: r["launches"][name] for route, r in out["routes"].items()}
+            for name in PROFILE_LAUNCHES["fused"]}
+
+
+def phase_frontend(card: str) -> None:
+    """3-frontend: tools/torch_bench_frontend.py at B = 3,072 — the host
+    front end's steps and the deferred σ gate on the card, which must
+    take the device chain (one K3 launch) and pass."""
+    from tools.torch_bench_frontend import bench_frontend
+
+    out, outputs = bench_frontend(BATCH)
+    say("3-frontend", card=card, gate_launches=outputs["gate_launches"], **out)
+    if outputs["subgroup_ok"] is not True:
+        fail("3-frontend: the deferred subgroup gate refused the crafted σ points")
+    if out["subgroup_route"] != "device-chain" or outputs["gate_launches"] != 1:
+        fail(f"3-frontend: the gate took {out['subgroup_route']} with "
+             f"{outputs['gate_launches']} K3 launches, not one device chain")
 
 
 # ------------------------------------------------------------ phase 3-msm
@@ -1332,7 +1410,7 @@ def phase_bls(torch, dev, card: str) -> int:
         torch, lambda: bls_agg.batch_verify_signatures(tampered, b"smoke-seed"))
     checks["tampered_refused"] = ok is False
     trace = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-             "device_idle_share": None if busy_ms is None else 1 - busy_ms / wall_ms,
+             "device_idle_share": 1 - busy_ms / wall_ms,
              "top_device_ms": top}
     # tests/test_bls_agg.py:90-112: shift one signature by Δ and one by −Δ
     (pk, m0, s0), (_, m1, s1) = triples[0], triples[BLS_KEYS]
@@ -1710,6 +1788,12 @@ NODE_BLOCK_MS = 500
 NODE_CHUNKS = 8
 NODE_SECTORS = 4
 NODE_HOST = "127.0.0.1"
+# The fleet report after the light read: samples, and new blocks across
+# them; then the read load on the replica, clients x proof-batch reads.
+FLEET_SAMPLES = 3
+FLEET_BLOCKS = 2
+LOAD_CLIENTS = 2
+LOAD_READS = 10
 
 
 def _node_spec_file(path) -> str:
@@ -1936,6 +2020,8 @@ def _node_run(torch, card: str, spec_path: str, ports: list[int], procs: dict) -
     if anchor["number"] < fin or not present or lc.justifications_verified < 1:
         fail(f"8-node: light client anchor {anchor}, read {present} {account}")
     step("light_read")
+    fleet, load = _fleet_and_load(spec_path, ports)
+    step("fleet_report_and_load")
     for client in (miner, tee, stash):
         client.close()
     forks = {}
@@ -1958,12 +2044,53 @@ def _node_run(torch, card: str, spec_path: str, ports: list[int], procs: dict) -
         light_anchor=anchor["number"], light_read_present=present,
         verify_stage_seconds=backend.stage_seconds, launches_around_prove_verify=launches,
         observed_in_this_process=observed)
+    say("8-node-fleet", card=card, **fleet)
+    say("8-node-load", card=card, **load)
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         fail(f"8-node: the prove and verify launched no {missing}")
     if not all(v > 0 for v in observed.values()):
         fail(f"8-node: this process observed no stage histograms: {observed}")
+    checks = fleet["proof"].get("stages", {}).get("pairing", {}).get("count", 0)
+    if fleet["unreachable_nodes"] or not fleet["fleet"]["blocks_per_s"] > 0 or checks < 1:
+        fail(f"8-node: fleet report: {fleet['unreachable_nodes']} unreachable, "
+             f"{fleet['fleet']['blocks_per_s']} blocks/s, {checks} combined checks")
+    if load["errors"] or load["reads"] != LOAD_CLIENTS * LOAD_READS:
+        fail(f"8-node: read load {load}")
     return launches
+
+
+def _fleet_and_load(spec_path: str, ports: list[int]) -> tuple[dict, dict]:
+    """The port's operator tools on the network: FleetCollector over the
+    validators and the replica, sampled FLEET_SAMPLES times or more across
+    FLEET_BLOCKS new blocks, with run_load's verifying light clients on
+    the replica inside the window; the report merges this process's proof
+    stage registry (the round's verify ran here).  Returns (the report,
+    each node's entry cut to its samples and head, and the load)."""
+    from cess_tpu_torch.node.chain_spec import load_spec
+    from cess_tpu_torch.proof import torch_backend
+    from tools.torch_read_loadgen import run_load
+    from tools.torch_telemetry_report import FleetCollector
+
+    collector = FleetCollector([(NODE_HOST, p) for p in ports], timeout=10.0)
+    collector.sample()
+    load = run_load([(NODE_HOST, ports[3])], load_spec(spec_path),
+                    clients=LOAD_CLIENTS, reads=LOAD_READS, timeout=15.0)
+
+    def moved():
+        collector.sample()
+        series = collector.samples.values()
+        if not all(len(s) >= FLEET_SAMPLES for s in series):
+            return False
+        first = max(s[0]["health"].get("bestBlock", 0) for s in series)
+        last = max(s[-1]["health"].get("bestBlock", 0) for s in series)
+        return last - first >= FLEET_BLOCKS
+
+    _wait_for(moved, 60, f"{FLEET_BLOCKS} new blocks in the fleet report's samples")
+    report = collector.report(extra_registries=(torch_backend.proof_stage_registry(),))
+    report["per_node"] = {label: {k: e[k] for k in ("unreachable", "samples", "bestBlock")}
+                          for label, e in report["per_node"].items()}
+    return report, load
 
 
 

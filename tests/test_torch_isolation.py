@@ -1,7 +1,8 @@
-"""The PyTorch port stands alone: importing cess_tpu_torch pulls in neither
-jax nor any module of the JAX package, its sources import neither, and
-its device entry points refuse to run without a card instead of falling
-back to the plain tensor path or to a host fold."""
+"""The PyTorch port stands alone: importing cess_tpu_torch or one of its
+operator tools (tools/torch_*.py) pulls in neither jax nor any module of
+the JAX package, their sources import neither, and the port's device
+entry points refuse to run without a card instead of falling back to the
+plain tensor path or to a host fold."""
 
 import pkgutil
 import re
@@ -61,7 +62,7 @@ def test_import_pulls_in_no_jax_and_no_cess_tpu():
 
 
 def test_sources_import_no_jax_and_no_cess_tpu():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + _port_tools()
     assert len(files) > 10
     offenders = [
         f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
@@ -75,6 +76,37 @@ def test_sources_import_no_jax_and_no_cess_tpu():
             "chain/checkpoint.py", "chain/offences.py", "__main__.py"}
     host |= {f"node/{m}.py" for m in _NODE} | {f"light/{m}.py" for m in _LIGHT}
     assert host <= scanned
+
+
+# The port's operator tools: new files beside the JAX package's tools.
+_TOOLS = ("torch_read_loadgen", "torch_telemetry_report", "torch_bench_frontend",
+          "torch_profile_verify")
+
+
+def _port_tools() -> list[Path]:
+    return sorted((ROOT / "tools").glob("torch_*.py"))
+
+
+def test_port_tools_are_scanned():
+    assert {f"{t}.py" for t in _TOOLS} | {"torch_kernel_times.py", "torch_rs_probe.py",
+                                          "torch_fp_sass.py"} \
+        <= {f.name for f in _port_tools()}
+
+
+@pytest.mark.parametrize("tool", _TOOLS)
+def test_port_tool_import_pulls_in_no_jax_and_no_cess_tpu(tool):
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module('tools.{tool}')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'cess_tpu'))\n"
+        "print(repr(bad))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120, check=True,
+    )
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 def test_forbidden_pattern_tells_the_port_from_the_reference():
