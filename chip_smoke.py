@@ -14,9 +14,7 @@ Phases, one line each on stdout:
      TorchBackend() against the port's CpuBackend, and prove_batch bytes
   3  protocol geometry (1024 chunks × 265 sectors, 47 challenged chunks):
      B = 3072 crafted proofs verify all True with every kernel's launch
-     count read around that run; the same batch once more under
-     torch.profiler for the device's busy time (the union of the trace's
-     device intervals); a 64-proof sub-batch
+     count read around that run; a 64-proof sub-batch
      with one tampered μ isolates exactly that proof; which XMD path
      hashed the chunk points (`xmd`: native or pure) and the stage split;
      3-host times the check's host steps alone (pk and σ decompression,
@@ -33,14 +31,16 @@ Phases, one line each on stdout:
      fold Π_c H(name‖i_c)^{v_c} on every 12th item
   3-profile  tools/torch_profile_verify.py on phase 3's batch: the staged
      check's steps timed one at a time (ρ, the μ combination, the σ gate,
-     the σ MSM, the host XMD, the SSWU map, the grouped H fold, the ρ
-     fold, the u fold, the pairing), then the fused and the staged route
+     the σ MSM, the host XMD, the lanes' upload, the SSWU map, the
+     grouped H fold, the ρ fold, the u fold, the pairing), then the fused and the staged route
      once warm and once under torch.profiler — all True with exactly
      PROFILE_LAUNCHES (fused K1 3, K4 3, K2 4, K3 3; staged as 3-staged),
      wall ms, the device busy ms as the union of the trace's device
      intervals beside the per-name sum, the idle share in [0, 1], the
      eight largest device entries, the stage seconds — and the proof
-     stage histograms' totals and host/device overlap fraction
+     stage histograms' totals and host/device overlap fraction; the
+     fused route's profiled run also gives the `3-trace` line (wall ms,
+     device busy ms, idle share, the largest device entries)
   3-frontend  tools/torch_bench_frontend.py at B = 3,072: σ
      decompression, transcript and ρ, μ packing on the host, then the
      deferred σ subgroup gate on the card (one K3 [r]-chain), True
@@ -60,8 +60,9 @@ Phases, one line each on stdout:
      survivors [1, 2] and re-encoded by RSStream.run_batch from host
      memory, on both GF(256) products, three passes each, every output
      byte checked; pinned copy rates and the bus bound; one pass under
-     torch.profiler; segments, a partial slab, per-segment masks and
-     RS(12,4) against the port's gf256 reference.  The RS path has no
+     torch.profiler (the per-name sums of compute and copies, and the
+     union of the device intervals across its streams); segments, a
+     partial slab, per-segment masks and RS(12,4) against the port's gf256 reference.  The RS path has no
      hand kernel (the JAX package computes it in plain XLA), so it adds
      no `kernels` row.
   6  the signature and attestation verifiers.  6-bls: BASELINE config 4
@@ -104,7 +105,8 @@ Phases, one line each on stdout:
      FleetCollector samples the validators and the replica (3 samples or
      more across 2 new blocks) and reports with this process's proof
      stage registry merged (`8-node-fleet`: no node unreachable, blocks/s
-     above 0, a combined check in the proof family), and
+     above 0, the pairings of the round's own verify in the proof family,
+     read around that verify as `round_proof_plane`), and
      tools/torch_read_loadgen.py's run_load drives 2 verifying light
      clients x 10 proof-batch reads on the replica (`8-node-load`: 20
      reads, no error).
@@ -654,24 +656,6 @@ def phase_matrix(torch, dev) -> None:
 # ------------------------------------------------------------ phase 3
 
 
-def _device_rows(torch, fn):
-    """fn() under torch.profiler → (its result, [(device entry, ms)],
-    wall ms)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side entries only: a CPU op's entry repeats its kernels' time
-    rows = [(e.key.split("(")[0], e.self_device_time_total / 1e3)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    return out, rows, wall_ms
-
-
 def _device_busy(torch, fn):
     """fn() under torch.profiler → (its result, device busy ms, wall ms,
     the largest device entries), through tools/torch_profile_verify.py's
@@ -680,7 +664,7 @@ def _device_busy(torch, fn):
     device time raises."""
     from tools.torch_profile_verify import run_traced
 
-    out, wall_ms, trace = run_traced(fn)
+    out, wall_ms, trace, _ = run_traced(fn)
     top = {k: round(ms, 3) for k, ms in trace["top_device_ms"].items()}
     return out, trace["device_busy_ms"], wall_ms, top
 
@@ -748,14 +732,6 @@ def phase_geometry(torch, dev, batch: int) -> tuple:
         stage_seconds={k: round(v, 3) for k, v in backend.stage_seconds.items()},
         launches=launches, all_true=True)
 
-    verdicts, busy_ms, wall_ms, top = _device_busy(torch, lambda: backend.verify_batch(
-        pk, items, b"bench-seed", params))
-    if verdicts != [True] * batch:
-        fail("protocol batch under the profiler: not all True")
-    say("3-trace", batch=batch, wall_ms=wall_ms, device_busy_ms=busy_ms,
-        device_idle_share=1 - busy_ms / wall_ms,
-        top_device_ms=top)
-
     sub = list(items[:64])
     nm, c, p = sub[17]
     sub[17] = (nm, c, podr2.Podr2Proof(p.sigma, [1] + p.mu[1:]))
@@ -811,10 +787,9 @@ def phase_host_split(items, params) -> None:
 
 
 def _kernel_counters():
-    from cess_tpu_torch.ops import g1, glv, h2c
+    from tools.torch_profile_verify import kernel_counters
 
-    return {"K1": h2c._map_pairs_kernel, "K4": h2c._pow_c1,
-            "K2": glv.glv_fold, "K3": g1.scalar_mul_ladder}
+    return kernel_counters()
 
 
 # The staged route's launches on one combined check that passes: the σ
@@ -931,6 +906,10 @@ def phase_profile(torch, card: str, pk, items, params) -> dict:
     out = profile_verify(pk, items, params)
     seconds = time.perf_counter() - t0
     say("3-profile", card=card, seconds=seconds, **out)
+    fused = out["routes"]["fused"]
+    say("3-trace", batch=len(items), wall_ms=fused["wall_ms"],
+        device_busy_ms=fused["device_busy_ms"], device_idle_share=fused["device_idle_share"],
+        top_device_ms={k: round(ms, 3) for k, ms in fused["top_device_ms"].items()})
     if not out["components_pairing_true"]:
         fail("3-profile: the staged check's steps, one at a time, refused the batch")
     for route, r in out["routes"].items():
@@ -1168,6 +1147,7 @@ def phase_rs(torch, dev, card: str) -> None:
     import numpy as np
 
     from cess_tpu_torch.ops import gf256, rs
+    from tools.torch_profile_verify import run_traced
 
     t_start = time.perf_counter()
     slab = rs.SLAB
@@ -1256,7 +1236,7 @@ def phase_rs(torch, dev, card: str) -> None:
     code = rs.segment_code()
     stream = rs.RSStream(code, present=RS_PRESENT)
     stream.run_batch(survivors[:slab])
-    rec, rows, wall_ms = _device_rows(torch, lambda: stream.run_batch(survivors))
+    rec, wall_ms, trace, rows = run_traced(lambda: stream.run_batch(survivors))
     if _first_mismatch(rec[:, 1], survivors[:, 0], slab) is not None:
         fail("RS reconstruct under the profiler differs from survivor row 0")
     rec = None
@@ -1267,6 +1247,8 @@ def phase_rs(torch, dev, card: str) -> None:
     say("5-rs-trace", card=card, path=code.path, faster_path=faster, wall_ms=wall_ms,
         device_compute_ms=compute, h2d_copy_ms=h2d, d2h_copy_ms=d2h,
         compute_idle_share=1 - compute / wall_ms, top_device_ms=top,
+        device_busy_ms=trace["device_busy_ms"], device_sum_ms=trace["device_sum_ms"],
+        device_idle_share=1 - trace["device_busy_ms"] / wall_ms,
         bus_bound_ms=bound_s * 1e3, bus_bound_both_at_once_ms=bound_both_s * 1e3,
         share_of_bus_bound=bound_s * 1e3 / wall_ms)
     survivors = None
@@ -1720,12 +1702,10 @@ def phase_sim(torch, dev, card: str) -> dict:
     kernel's launches in the two audit rounds."""
     from cess_tpu_torch.chain import checkpoint
     from cess_tpu_torch.chain.node import NodeSim
-    from cess_tpu_torch.ops import g1, glv, h2c
     from cess_tpu_torch.ops.podr2 import Podr2Params
 
     want = sim_hashes()
-    counters = {"K1": h2c._map_pairs_kernel, "K4": h2c._pow_c1,
-                "K2": glv.glv_fold, "K3": g1.scalar_mul_ladder}
+    counters = _kernel_counters()
     t_start = t0 = time.perf_counter()
     sim = NodeSim(SIM_MINERS, SIM_VALIDATORS,
                   params=Podr2Params(n=SIM_CHUNKS, s=SIM_SECTORS))
@@ -1894,7 +1874,7 @@ def _node_run(torch, card: str, spec_path: str, ports: list[int], procs: dict) -
     from cess_tpu_torch.node.client import MinerClient, TeeClient
     from cess_tpu_torch.node.metrics import parse_exposition
     from cess_tpu_torch.node.rpc import rpc_call
-    from cess_tpu_torch.ops import g1, glv, h2c, rs
+    from cess_tpu_torch.ops import rs
     from cess_tpu_torch.ops.podr2 import Podr2Params
     from cess_tpu_torch.proof import TorchBackend, torch_backend
 
@@ -1968,8 +1948,7 @@ def _node_run(torch, card: str, spec_path: str, ports: list[int], procs: dict) -
     backend = TorchBackend()
     if backend.device.type != "cuda":
         fail(f"8-node: TorchBackend runs on {backend.device}")
-    counters = {"K1": h2c._map_pairs_kernel, "K4": h2c._pow_c1,
-                "K2": glv.glv_fold, "K3": g1.scalar_mul_ladder}
+    counters = _kernel_counters()
     torch.cuda.synchronize()
     for f in counters.values():
         f.launches = 0
@@ -1978,10 +1957,17 @@ def _node_run(torch, card: str, spec_path: str, ports: list[int], procs: dict) -
         fail("8-node: the miner found no challenge to answer")
     torch.cuda.synchronize()
     step("prove")
+    plane0 = _proof_plane()
     results = _wait_for(lambda: tee.verify_missions(backend, params, {"miner-0": items}),
                         120, "the verify mission")
     torch.cuda.synchronize()
     launches = {k: f.launches for k, f in counters.items()}
+    plane1 = _proof_plane()
+    # the round's own share of the process-wide proof plane, which phases
+    # 3 to 3-profile filled before it
+    round_plane = {k: plane1[k] - plane0[k] for k in plane1}
+    round_plane["per_proof_ms"] = (round_plane["seconds"] / round_plane["proofs"] * 1e3
+                                   if round_plane["proofs"] else None)
     step("verify")
     if results != {"miner-0": (True, True)}:
         fail(f"8-node: verdicts {results}")
@@ -2044,20 +2030,37 @@ def _node_run(torch, card: str, spec_path: str, ports: list[int], procs: dict) -
         light_anchor=anchor["number"], light_read_present=present,
         verify_stage_seconds=backend.stage_seconds, launches_around_prove_verify=launches,
         observed_in_this_process=observed)
-    say("8-node-fleet", card=card, **fleet)
+    say("8-node-fleet", card=card, round_proof_plane=round_plane, **fleet)
     say("8-node-load", card=card, **load)
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         fail(f"8-node: the prove and verify launched no {missing}")
     if not all(v > 0 for v in observed.values()):
         fail(f"8-node: this process observed no stage histograms: {observed}")
-    checks = fleet["proof"].get("stages", {}).get("pairing", {}).get("count", 0)
-    if fleet["unreachable_nodes"] or not fleet["fleet"]["blocks_per_s"] > 0 or checks < 1:
+    if round_plane["checks"] < 1 or round_plane["pairings"] < 1:
+        fail(f"8-node: the round's verify reached no combined check: {round_plane}")
+    pairings = fleet["proof"].get("stages", {}).get("pairing", {}).get("count", 0)
+    if fleet["unreachable_nodes"] or not fleet["fleet"]["blocks_per_s"] > 0 \
+            or pairings < plane1["pairings"]:
         fail(f"8-node: fleet report: {fleet['unreachable_nodes']} unreachable, "
-             f"{fleet['fleet']['blocks_per_s']} blocks/s, {checks} combined checks")
+             f"{fleet['fleet']['blocks_per_s']} blocks/s, {pairings} pairings where this "
+             f"process holds {plane1['pairings']} with the round's {round_plane['pairings']}")
     if load["errors"] or load["reads"] != LOAD_CLIENTS * LOAD_READS:
         fail(f"8-node: read load {load}")
     return launches
+
+
+def _proof_plane() -> dict:
+    """This process's proof data plane: the combined checks, the proofs
+    they covered, their seconds and the pairing stage's count."""
+    from cess_tpu_torch.node.metrics import parse_exposition
+    from cess_tpu_torch.proof import torch_backend
+
+    fams = parse_exposition(torch_backend.proof_stage_registry().render())
+    return {"checks": fams["cess_proof_checks"].value(),
+            "proofs": fams["cess_proofs_verified"].value(),
+            "seconds": fams["cess_proof_verify_seconds_total"].value(),
+            "pairings": fams["cess_proof_stage_pairing_seconds"].histogram()["count"]}
 
 
 def _fleet_and_load(spec_path: str, ports: list[int]) -> tuple[dict, dict]:

@@ -248,7 +248,7 @@ def test_profile_routes_and_components_accept_the_batch(profile):
         assert r["launches"] == {"K1": 0, "K4": 0, "K2": 0, "K3": 0}
         assert "device_busy_ms" not in r and "device_idle_share" not in r
     assert set(profile["components_ms"]) == {
-        "rho", "mu_combine", "sigma_gate", "sigma_msm", "host_xmd", "sswu_map",
+        "rho", "mu_combine", "sigma_gate", "sigma_msm", "host_xmd", "lanes_h2d", "sswu_map",
         "grouped_h_msm", "rho_fold", "u_msm", "pairing"}
 
 

@@ -8,14 +8,18 @@ card.  Three parts, one JSON line:
    fused=False) runs alone on that route's inputs, each ending in
    `torch.cuda.synchronize()` on the card:
 
-     rho            encode + batch_transcript + batch_rho  (JAX: batch_rho)
+     rho            batch_transcript + batch_rho   (JAX: batch_rho; the
+                    proof encodings are made before the timer)
      mu_combine     fr.combine_mu                  (mu combine (fr))
      sigma_gate     _subgroup_ok, one K3 [r]-chain (no JAX component: the
                     deferred σ subgroup test)
      sigma_msm      g1.msm(σ, ρ, 128 bits)         (sigma MSM (flat B))
      host_xmd       h2c.u_for_pairs, native XMD    (host XMD (native))
-     sswu_map       h2c._map_pairs_kernel, K1 with its K4 launch, on the
-                    pairs padded to a power of two (device SSWU map)
+     lanes_h2d      the XMD's lanes padded to a power of two and copied
+                    to the card (no JAX component: the input side of
+                    the device SSWU map)
+     sswu_map       h2c._map_pairs_kernel, K1 with its K4 launch, on
+                    those lanes                    (device SSWU map)
      grouped_h_msm  torch_backend.h_fold_grouped: v·h_eff digits, one K3
                     fold at 224 bits, its tree   (grouped H-MSM)
      rho_fold       g1.msm(H folds, ρ, 128 bits)   (rho fold MSM (flat B))
@@ -27,7 +31,8 @@ card.  Three parts, one JSON line:
 2. The routes under torch.profiler.  `TorchBackend(device).verify_batch`
    (fused) and `TorchBackend(device, fused=False).verify_batch` (staged)
    run once warm, then once each under the profiler with the CPU and
-   CUDA activities (on the CPU once more without it).  Each reports its wall ms, verdicts, K1-K4 launches
+   CUDA activities (on the CPU once more without it).  Each reports
+   its wall ms, verdicts, K1-K4 launches
    (the kernel wrappers' own counts, read before and after the run) and
    stage seconds; on the card also the device busy ms as the UNION of
    the trace's device intervals (kernels, copies, fills: what overlaps
@@ -114,7 +119,8 @@ def _sync(torch, dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _counters() -> dict:
+def kernel_counters() -> dict:
+    """K1-K4's wrappers, each with its `launches` count."""
     from cess_tpu_torch.ops import g1, glv, h2c
 
     return {"K1": h2c._map_pairs_kernel, "K4": h2c._pow_c1,
@@ -163,8 +169,9 @@ def component_times(pk, items, params, device, seed: bytes = SEED) -> tuple[dict
         names, name_ids, indices, podr2.H_DST))
     n = len(name_ids)
     m = 1 << max(0, (n - 1).bit_length())
-    lanes = [torch.as_tensor(np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, m - n)]), device=dev)
-             for a in (u_limbs, sgn, exc)]
+    lanes = timed("lanes_h2d", lambda: [
+        torch.as_tensor(np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, m - n)]), device=dev)
+        for a in (u_limbs, sgn, exc)])
     hashed = timed("sswu_map", lambda: h2c._map_pairs_kernel(*lanes))
     inner = timed("grouped_h_msm", lambda: torch_backend.h_fold_grouped(items, counts, hashed))
     rhs = timed("rho_fold", lambda: g1.msm(inner, rhos, bits=128, device=dev))
@@ -175,9 +182,9 @@ def component_times(pk, items, params, device, seed: bytes = SEED) -> tuple[dict
     return ms, bool(gate and verdict)
 
 
-def _trace(torch, prof) -> dict:
-    """Device busy ms (the union of the device intervals), the per-name
-    sum of the same trace, and its largest entries."""
+def _trace(torch, prof) -> tuple[dict, list]:
+    """({device busy ms (the union of the device intervals), the per-name
+    sum of the same trace, its largest entries}, [(device entry, ms)])."""
     from torch.autograd import DeviceType
 
     spans = [(e.time_range.start, e.time_range.end)
@@ -190,12 +197,13 @@ def _trace(torch, prof) -> dict:
         "device_busy_ms": interval_union(spans) / 1e3,
         "device_sum_ms": sum(t for _, t in rows),
         "top_device_ms": dict(sorted(rows, key=lambda r: -r[1])[:TOP_ENTRIES]),
-    }
+    }, rows
 
 
 def run_traced(fn) -> tuple:
     """fn() on the card under torch.profiler (CPU and CUDA activities),
-    ending in a synchronize: (its result, wall ms, `_trace`'s dict)."""
+    ending in a synchronize: (its result, wall ms, `_trace`'s dict, the
+    trace's per-name device rows)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -205,7 +213,7 @@ def run_traced(fn) -> tuple:
         out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return out, wall_ms, _trace(torch, prof)
+    return (out, wall_ms, *_trace(torch, prof))
 
 
 def profile_route(backend, pk, items, params, seed: bytes = SEED) -> dict:
@@ -228,11 +236,11 @@ def profile_route(backend, pk, items, params, seed: bytes = SEED) -> dict:
     warm_ms = (time.perf_counter() - t0) * 1e3
 
     backend.stage_seconds.clear()
-    counters = _counters()
+    counters = kernel_counters()
     before = {k: f.launches for k, f in counters.items()}
     trace = {}
     if dev.type == "cuda":
-        verdicts, wall_ms, trace = run_traced(verify)
+        verdicts, wall_ms, trace, _ = run_traced(verify)
         trace["device_idle_share"] = 1 - trace["device_busy_ms"] / wall_ms
     else:
         t0 = time.perf_counter()
