@@ -147,15 +147,19 @@ def audit_data_plane_step(mesh: Mesh):
         rho = np.asarray(rho_limbs)
         if rho.shape[0] != sectors.shape[0]:
             raise ValueError("rho/sector batch length mismatch")
+        # one upload of v per distinct device: ranks on one card share it
+        v_limbs = np.asarray(v_limbs)
+        v_on = {d: torch.as_tensor(v_limbs, device=d) for d in dict.fromkeys(mesh.devices)}
         mus, parts = [], []
         for dev, sl in zip(mesh.devices, mesh.shards(sectors.shape[0])):
-            v = torch.as_tensor(np.asarray(v_limbs), device=dev)
             sec = np.ascontiguousarray(np.moveaxis(sectors[sl], 1, -2))
-            mu = fr.weighted_sum_kernel(v, torch.as_tensor(sec, device=dev))
+            mu = fr.weighted_sum_kernel(v_on[dev], torch.as_tensor(sec, device=dev))
             w = torch.as_tensor(rho[sl], device=dev)
             parts.append(fr.weighted_sum_kernel(w, mu.to(torch.int8).movedim(0, -2)))
-            mus.append(mu.cpu())
+            mus.append(mu)
         combined = _psum_canonical(mesh, parts)
-        return torch.cat(mus).numpy(), combined.cpu().numpy()
+        # every rank is enqueued before the one pull of μ to the host
+        mu_all = torch.cat([m.to(mesh.devices[0]) for m in mus])
+        return mu_all.cpu().numpy(), combined.cpu().numpy()
 
     return step

@@ -80,7 +80,7 @@ def test_sources_import_no_jax_and_no_cess_tpu():
 
 # The port's operator tools: new files beside the JAX package's tools.
 _TOOLS = ("torch_read_loadgen", "torch_telemetry_report", "torch_bench_frontend",
-          "torch_profile_verify")
+          "torch_profile_verify", "torch_derive_sswu", "torch_lint")
 
 
 def _port_tools() -> list[Path]:
